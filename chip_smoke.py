@@ -1,0 +1,462 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one card.
+
+Drives the port's main path at the paper's 720p30 through the entry points
+a user calls: ``VideoStore.ingest_segment`` writes 4 segments of
+``jackson`` and 4 of ``dashcam`` (120 frames of 720x1280 each) into a
+golden SF and a fast-coded SF, then ``run_query`` runs Query A
+(Diff -> S-NN -> NN) on jackson and Query B (Motion -> License -> OCR) on
+dashcam.  The launch counters of the three CUDA kernels (K1
+dct8_dequantize, K2 resize_bilinear, K3 dct8_quantize) are zeroed just
+before ingest and read just after the queries: each must have launched.
+
+On 720p30 scenes Query A's Diff flags no event (cars move a few pixels a
+frame, far under its threshold, tuned on 96x160 scenes at 8 fps), so its
+cascade stops there.  A second counted path, the stage phase, therefore
+drives every item-producing stage of both cascades through
+``BatchedConsumer`` over all 4 segments of its stream with every consumed
+frame activated: S-NN and NN on jackson, Motion, License and OCR on
+dashcam at their configured CFs, and Diff on dashcam at the golden SF's
+full-rate 720p, where the camera's pan makes it fire.  Its counters are
+zeroed just before it and read just after; NN must launch K2 once per
+pyramid level it resizes to.
+
+Then it checks what came out:
+* each kernel against its plain PyTorch version on the card, at the
+  shapes the main path gives it: K3's symbols on identical residual input
+  (equal but for at most 1e-6 of them, by one), K1 at atol 1e-3 (the
+  reference's Pallas-vs-jnp bound), K2 at atol 1e-3 on 0-255 data;
+* each query's stage stats against the plain path (the port on the CPU)
+  on the same store, and Query B's items at F1 >= 0.98; Query A's items
+  are empty on both paths, as its Diff stage flags nothing;
+* each stage-phase run's items per segment against the same run on the
+  CPU: equal, and never empty;
+* the golden SF decodes on the card to the plain decode's frames, at
+  35 dB PSNR or better against the ingested frames.
+An item comparison fails when either side is empty.
+Each kernel is timed (CUDA events) beside its plain version and, where one
+PyTorch call computes the same function, that call (``library_ms``), with
+the least time the card could take (``bound_ms``).
+
+Prints the queries' x-realtime, a ``{"kernels": [...]}`` line, the card's
+name and power limit, and last ``{"ok": true, "device": {...}}``.  Exits
+non-zero without that last line when there is no CUDA card or a check
+fails.  Run from the repository root: ``python3 chip_smoke.py``.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import shutil
+import subprocess
+import sys
+import tempfile
+import time
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, os.path.join(HERE, "src"))
+
+SEGMENTS = 4
+STREAMS = {"A": "jackson", "B": "dashcam"}
+ACCURACY = 0.8
+# NVIDIA H100 SXM data sheet: HBM3 bandwidth, fp32 without tensor cores
+PEAK_BYTES_S = 3.35e12
+PEAK_FP32_FLOP_S = 67e12
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
+    return out.stdout.strip().splitlines()[0]
+
+
+def smoke_config():
+    """Two coded SFs serving both queries at ACCURACY, shaped like the
+    reference's tests/test_query.py config: the cheap stages read a
+    fast-coded SF with keyframe 10 (so chunk-skip decode runs), NN and OCR
+    read golden."""
+    from repro_torch.core.coalesce import SFNode
+    from repro_torch.core.configure import DerivedConfig
+    from repro_torch.core.consumption import Consumer, ConsumerPlan
+    from repro_torch.core.knobs import (GOLDEN_CODING, CodingOption,
+                                        FidelityOption as F)
+
+    # The operators' thresholds and kernels were sized on 96x160 scenes;
+    # the cheap stages consume at the 100p rung (96x176 at this spec),
+    # where a 720p scene has that geometry.  License needs its plates at
+    # pixel scale (540p), NN and OCR read golden.
+    cfs = {"diff": F("good", 1.0, 100, 1 / 2),
+           "snn": F("good", 1.0, 100, 1 / 2),
+           "motion": F("good", 1.0, 100, 1 / 2),
+           "license": F("good", 1.0, 540, 1 / 2),
+           "nn": F("best", 1.0, 720, 2 / 3),
+           "ocr": F("best", 1.0, 720, 1.0)}
+    plans = {op: ConsumerPlan(Consumer(op, ACCURACY), cf, 0.85, 100.0)
+             for op, cf in cfs.items()}
+    cheap = [plans[op] for op in ("diff", "snn", "motion", "license")]
+    fid = cheap[0].cf
+    for p in cheap[1:]:
+        fid = fid.join(p.cf)
+    fast = SFNode(fid, CodingOption("fast", 10), cheap)
+    golden = SFNode(F(), GOLDEN_CODING, [plans["nn"], plans["ocr"]],
+                    golden=True)
+    return DerivedConfig(plans=list(plans.values()), nodes=[fast, golden],
+                         coalesce_log=None, dct_backend="cuda")
+
+
+def ingest_all(vs, segments: int):
+    """Ingest ``segments`` segments of each stream, one thread per segment
+    (scene rendering and entropy coding run on the host, and zlib releases
+    the interpreter lock).  Returns the first segment's frames."""
+    import concurrent.futures
+
+    from repro_torch.analytics.scene import generate_segment
+
+    jobs = [(s, seg) for s in STREAMS.values() for seg in range(segments)]
+
+    def ingest(job):
+        frames, _ = generate_segment(job[0], job[1], vs.spec)
+        vs.ingest_segment(job[0], job[1], frames)
+        return frames
+
+    with concurrent.futures.ThreadPoolExecutor(len(jobs)) as pool:
+        futures = [pool.submit(ingest, job) for job in jobs]
+        frames = [f.result() for f in futures]
+    vs.flush()
+    return frames[0]
+
+
+def stage_runs(cfg) -> list[tuple]:
+    """(stream, op, sf_id, cf) of the stage phase: every stage of both
+    cascades but Query A's Diff, at its configured CF and SF, and Diff at
+    the golden SF's own fidelity on Query B's panning dashcam."""
+    from repro_torch.analytics.query import stage_specs
+    from repro_torch.core.knobs import FidelityOption
+
+    runs = [(stream, op, sf_id, cf)
+            for q, stream in STREAMS.items()
+            for op, _op, cf, sf_id in stage_specs(cfg, q, ACCURACY)
+            if (q, op) != ("A", "diff")]
+    return runs + [(STREAMS["B"], "diff", "sf_g", FidelityOption())]
+
+
+def drive_stage(vs, run, frames: list, launches) -> dict:
+    """One stage-phase run: the operator through ``BatchedConsumer`` over
+    ``frames`` (one stack per segment, on any device), each consumed
+    frame activated.  Returns its items per segment, stats, wall seconds
+    and the K2 launches its detect calls made."""
+    import torch
+
+    from repro_torch.analytics.batch import BatchedConsumer
+    from repro_torch.analytics.operators import OPERATORS
+    from repro_torch.codec import transform as T
+
+    _stream, op, _sf, cf = run
+    pos = T.sample_indices(vs.spec.frames_per_segment, cf.sampling)
+    k2 = launches.snapshot().get("resize_bilinear", 0)
+    t0 = time.perf_counter()
+    items, stats = BatchedConsumer(vs.spec).consume(
+        OPERATORS[op], cf, [(seg, f, pos) for seg, f in enumerate(frames)])
+    if frames[0].is_cuda:
+        torch.cuda.synchronize()
+    return {"items": items, "stats": stats,
+            "s": time.perf_counter() - t0,
+            "k2": launches.snapshot().get("resize_bilinear", 0) - k2}
+
+
+def nn_pyramid_resizes(cf, spec) -> int:
+    """K2 launches one NN detect call makes at ``cf``: one per pyramid
+    level whose grid differs from the frames' own."""
+    from repro_torch.analytics.operators import NN
+
+    _, h, w = spec.resolve(cf)
+    return sum((max(14, int(h * s)), max(14, int(w * s))) != (h, w)
+               for s in NN.scales)
+
+
+def run_queries(vs, cfg, segments: int) -> dict:
+    from repro_torch.analytics.query import run_query
+
+    return {q: run_query(vs, cfg, q, stream, list(range(segments)), ACCURACY)
+            for q, stream in STREAMS.items()}
+
+
+def time_ms(torch, fn, reps):
+    """Mean device time of ``fn()`` over ``reps`` launches, after a warm-up
+    launch, by CUDA events."""
+    fn()
+    torch.cuda.synchronize()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def bound_ms(nbytes: float, flops: float) -> tuple[float, str]:
+    t_bytes, t_ops = nbytes / PEAK_BYTES_S, flops / PEAK_FP32_FLOP_S
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def main() -> int:
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA card", file=sys.stderr)
+        return 2
+
+    from repro_torch.analytics.accuracy import f1_score
+    from repro_torch.codec import segment as S
+    from repro_torch.codec import transform as T
+    from repro_torch.core.knobs import FidelityOption, IngestSpec
+    from repro_torch.kernels import build
+    from repro_torch.kernels.dct8.dct8 import dct8_dequantize, dct8_quantize
+    from repro_torch.kernels.dct8.ref import (dct8_dequantize_ref,
+                                              dct8_quantize_ref)
+    from repro_torch.kernels.resize.resize import band, resize_bilinear
+    from repro_torch.kernels.resize.ref import resize_ref
+    from repro_torch.videostore.video_store import VideoStore
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    failures: list[str] = []
+
+    def check(ok: bool, what: str):
+        print(f"check {'ok  ' if ok else 'FAIL'} {what}", flush=True)
+        if not ok:
+            failures.append(what)
+
+    def check_items(card, plain, min_f1: float, what: str):
+        """Items of the kernel path against the plain path's: F1 at least
+        ``min_f1``, and neither side empty (empty sets agree vacuously)."""
+        f1 = f1_score(card, plain) if card and plain else 0.0
+        check(f1 >= min_f1, f"{what}: F1 {f1:.4f} ({len(card)} vs "
+              f"{len(plain)} items, neither may be empty)")
+
+    t0 = time.perf_counter()
+    reports = build.compile_all()
+    print(f"build: {time.perf_counter() - t0:.1f} s", flush=True)
+    for name, log in reports.items():
+        for line in log.splitlines():
+            if "registers" in line:
+                print(f"ptxas {name}: {line.split(':', 1)[-1].strip()}")
+
+    spec = IngestSpec(height=720, width=1280, fps=30, segment_seconds=4)
+    cfg = smoke_config()
+    work = tempfile.mkdtemp(prefix=".smoke-", dir=HERE)
+    try:
+        root = os.path.join(work, "store")
+        vs = VideoStore(root, spec, device="cuda")
+        vs.set_formats(cfg.storage_formats())
+
+        # -- the main path: ingest, Query A, Query B ------------------------
+        build.LAUNCHES.reset()
+        t0 = time.perf_counter()
+        first_frames = ingest_all(vs, SEGMENTS)
+        torch.cuda.synchronize()
+        t_ingest = time.perf_counter() - t0
+        n_seg = SEGMENTS * len(STREAMS)
+        raw_gb = n_seg * first_frames.nbytes / 1e9
+        print(f"ingest: {n_seg} segments, {raw_gb:.2f} GB raw u8, "
+              f"{t_ingest:.1f} s, stored {vs.storage_bytes() / 1e6:.1f} MB",
+              flush=True)
+        results = run_queries(vs, cfg, SEGMENTS)
+        torch.cuda.synchronize()
+        launches = build.LAUNCHES.snapshot()
+
+        for query, res in results.items():
+            stages = ", ".join(f"{s.op}: {s.frames} frames/"
+                               f"{s.segments_scanned} segs/{s.items} items/"
+                               f"{s.retrieve_s:.2f} s retrieve/"
+                               f"{s.consume_s:.2f} s detect"
+                               for s in res.stages)
+            print(f"query {query} ({STREAMS[query]}): "
+                  f"{res.measured_speed:.1f}x realtime "
+                  f"({res.video_seconds} s of video in {res.wall_s:.2f} s), "
+                  f"{len(res.items)} items; {stages}", flush=True)
+        for query, res in run_queries(vs, cfg, SEGMENTS).items():
+            print(f"query {query} warm (not counted): "
+                  f"{res.measured_speed:.1f}x realtime", flush=True)
+        print(f"launches on the main path: {launches}", flush=True)
+        for name in ("dct8_quantize", "dct8_dequantize", "resize_bilinear"):
+            check(launches.get(name, 0) > 0, f"{name} launched on the main path")
+
+        # -- the stage phase: every item-producing stage on real frames -----
+        runs = stage_runs(cfg)
+        build.LAUNCHES.reset()
+        stage_frames, stage_card = [], []
+        for run in runs:
+            stream, _op, sf_id, cf = run
+            frames, _ = vs.retrieve_many(stream, list(range(SEGMENTS)),
+                                         sf_id, cf)
+            stage_frames.append(frames)
+            stage_card.append(drive_stage(vs, run, frames, build.LAUNCHES))
+        stage_launches = build.LAUNCHES.snapshot()
+        print(f"launches in the stage phase: {stage_launches}", flush=True)
+        for name in ("dct8_dequantize", "resize_bilinear"):
+            check(stage_launches.get(name, 0) > 0,
+                  f"{name} launched in the stage phase")
+        for run, out in zip(runs, stage_card):
+            if run[1] == "nn":
+                want = (nn_pyramid_resizes(run[3], spec)
+                        * out["stats"].detect_calls)
+                check(out["k2"] == want,
+                      f"stage nn launched K2 {out['k2']} times at its pyramid "
+                      f"levels ({want} expected)")
+
+        # -- output checks ---------------------------------------------------
+        golden, _ = vs.retrieve(STREAMS["A"], 0, "sf_g", FidelityOption())
+        mse = float(((golden.float() - torch.from_numpy(first_frames).to(
+            golden.device).float()) ** 2).mean())
+        psnr = 10 * np.log10(255.0 ** 2 / max(mse, 1e-9))
+        plain_golden, _ = VideoStore(root, spec, readonly=True,
+                                     device="cpu").retrieve(
+            STREAMS["A"], 0, "sf_g", FidelityOption())
+        check(tuple(golden.shape) == first_frames.shape and psnr >= 35.0
+              and torch.equal(golden.cpu(), plain_golden),
+              f"golden {STREAMS['A']}:0 decodes to {tuple(golden.shape)} "
+              f"u8 equal to the plain decode, PSNR {psnr:.2f} dB vs the "
+              f"ingested frames")
+
+        t0 = time.perf_counter()
+        plain = run_queries(VideoStore(root, spec, readonly=True,
+                                       device="cpu"), cfg, SEGMENTS)
+
+        def stage_row(s):
+            return (s.op, s.frames, s.segments_scanned, s.detect_calls,
+                    s.items)
+
+        for query in STREAMS:
+            card_rows = [stage_row(s) for s in results[query].stages]
+            check(card_rows == [stage_row(s) for s in plain[query].stages],
+                  f"query {query} stage stats (op, frames, segments, detect "
+                  f"calls, items) equal the plain path's: {card_rows}")
+        check_items(results["B"].items, plain["B"].items, 0.98,
+                    "query B items, kernel path vs plain path")
+        print(f"query A: {len(results['A'].items)} items on the kernel path, "
+              f"{len(plain['A'].items)} on the plain path (Diff flags no "
+              f"event on 720p30 jackson; S-NN and NN are held in the stage "
+              f"phase)", flush=True)
+        print(f"plain path (CPU): {time.perf_counter() - t0:.1f} s", flush=True)
+
+        for run, frames, card in zip(runs, stage_frames, stage_card):
+            stream, op, sf_id, cf = run
+            ref = drive_stage(vs, run, [f.cpu() for f in frames],
+                              build.LAUNCHES)
+            union = set().union(*card["items"].values())
+            check_items(union, set().union(*ref["items"].values()), 1.0,
+                        f"stage {op} on {stream} {sf_id}/{cf.name()}, "
+                        f"{card['stats'].frames} frames, kernel path vs plain")
+            check(card["items"] == ref["items"]
+                  and card["stats"] == ref["stats"],
+                  f"stage {op}: items per segment and batch stats equal "
+                  f"({card['stats'].detect_calls} detect calls)")
+            print(f"stage {op}: {card['s']:.3f} s on the card, "
+                  f"{ref['s']:.3f} s plain (CPU), "
+                  f"{sum(map(len, card['items'].values()))} items in "
+                  f"{sum(1 for v in card['items'].values() if v)} of "
+                  f"{SEGMENTS} segments", flush=True)
+        del stage_frames
+
+        # -- kernels against their plain versions, timed --------------------
+        kernels = []
+        dev = torch.device("cuda")
+
+        # K3 on the encoder's input: a frame minus the mid-grey prediction
+        resid = torch.from_numpy(first_frames[:1]).to(dev).float() - 128.0
+        qs = FidelityOption().quant_scale  # golden quality
+        sym = dct8_quantize(resid, qs)
+        d = (sym.int() - dct8_quantize_ref(resid, qs).int()).abs()
+        n_diff = int((d > 0).sum())
+        check(int(d.max()) <= 1 and n_diff <= 1e-6 * d.numel(),
+              f"K3 dct8_quantize vs plain on {tuple(resid.shape)}: "
+              f"{n_diff} of {d.numel()} symbols differ")
+        n = resid.numel()
+        kernels.append(("dct8_quantize", float(d.max()),
+                        lambda: dct8_quantize(resid, qs),
+                        lambda: dct8_quantize_ref(resid, qs), None,
+                        bound_ms(n * 4 + n * 2, n / 64 * (2048 + 64)),
+                        "src/repro/kernels/dct8/dct8.py:64"))
+
+        # K1 on the decoder's input: a whole golden segment's symbols
+        blob = vs.backend.get(f"{STREAMS['A']}:sf_g:{0:06d}")
+        header, payload = S._parse(blob)
+        chunks = np.arange(-(-header["n"] // header["k"]))
+        sym_np, _ = S._chunk_symbols(header, payload, chunks,
+                                     S._pad_chunk_count(len(chunks)))
+        sym_all = torch.from_numpy(sym_np).to(dev).transpose(0, 1).reshape(
+            -1, *sym_np.shape[2:]).contiguous()
+        qs = header["qs"]
+        r = dct8_dequantize(sym_all, qs)
+        err1 = float((r - dct8_dequantize_ref(sym_all, qs)).abs().max())
+        check(err1 <= 1e-3, f"K1 dct8_dequantize vs plain on "
+              f"{tuple(sym_all.shape)}: max |d| {err1:.3g}")
+        n = r.numel()
+        kernels.append(("dct8_dequantize", err1,
+                        lambda: dct8_dequantize(sym_all, qs),
+                        lambda: dct8_dequantize_ref(sym_all, qs), None,
+                        bound_ms(n * 2 + n * 4, n / 64 * (2048 + 64)),
+                        "src/repro/kernels/dct8/dct8.py:85"))
+
+        # K2 on ingest's transcode of a golden segment to the fast SF's grid
+        sf = vs.formats["sf1"].fidelity
+        idx = T.temporal_indices(FidelityOption(), sf, spec)
+        x = torch.from_numpy(first_frames[idx]).to(dev).float()
+        nf, h1, w1 = x.shape
+        h2, w2 = spec.resolve(sf)[1:]
+        y = resize_bilinear(x, h2, w2)
+        err2 = float((y - resize_ref(x, h2, w2)).abs().max())
+        check(err2 <= 1e-3, f"K2 resize_bilinear vs plain on "
+              f"{tuple(x.shape)} -> {(h2, w2)}: max |d| {err2:.3g}")
+        lib_err = float((y - F.interpolate(
+            x[:, None], size=(h2, w2), mode="bilinear", antialias=True,
+            align_corners=False)[:, 0]).abs().max())
+        print(f"K2 vs F.interpolate(antialias=True): max |d| {lib_err:.3g}",
+              flush=True)
+        ty, tx = band(h2, h1)[1].shape[1], band(w2, w1)[1].shape[1]
+        kernels.append((
+            "resize_bilinear", err2, lambda: resize_bilinear(x, h2, w2),
+            lambda: resize_ref(x, h2, w2),
+            lambda: F.interpolate(x[:, None], size=(h2, w2), mode="bilinear",
+                                  antialias=True, align_corners=False),
+            bound_ms(4 * nf * (h1 * w1 + h2 * w2),
+                     2 * nf * (h2 * w1 * ty + h2 * w2 * tx)),
+            "src/repro/kernels/resize/resize.py:58"))
+
+        sources = {"dct8_quantize": "src/repro_torch/csrc/dct8.cu",
+                   "dct8_dequantize": "src/repro_torch/csrc/dct8.cu",
+                   "resize_bilinear": "src/repro_torch/csrc/resize.cu"}
+        rows = []
+        for name, err, fn, plain, lib, (b_ms, b_by), replaces in kernels:
+            rows.append({
+                "name": name, "route": "cuda", "source": sources[name],
+                "replaces": replaces, "launches": launches.get(name, 0),
+                "max_abs_err": err, "ms": time_ms(torch, fn, 20),
+                "plain_ms": time_ms(torch, plain, 3), "bound_ms": b_ms,
+                "bound_by": b_by,
+                "library_ms": None if lib is None else time_ms(torch, lib, 5)})
+        print(json.dumps({"kernels": rows}), flush=True)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+    if failures:
+        print(f"chip_smoke: {len(failures)} check(s) failed: {failures}",
+              file=sys.stderr)
+        return 1
+    print(card_line(), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,104 @@
+"""K2: antialiased bilinear resize as a hand-written CUDA kernel
+(``csrc/resize.cu``), replacing the Pallas kernel
+``src/repro/kernels/resize/resize.py::resize_bilinear``.
+
+``interp_matrix`` is the port's copy of the reference's weight matrix, here
+computed the way ``jax.image.resize(..., "bilinear")`` computes it (float32
+sample positions, column-normalised triangle filter), so the port matches
+that function and not only the reference kernel's float64 weights.  The
+kernel takes the band of each matrix (``band``): per output row a start
+index and at most ``2·ceil(support)+1`` weights.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import numpy as np
+import torch
+
+from ..build import LAUNCHES, LIBRARIES, check_launch
+
+
+@functools.cache
+def interp_matrix(n_out: int, n_in: int) -> np.ndarray:
+    """(n_out, n_in) float32 interpolation weights of
+    ``jax.image.resize(..., "bilinear")`` along one axis (antialiased
+    triangle filter: support widens by the downscale factor; each output's
+    weights normalised to sum 1)."""
+    if n_out == n_in:
+        return np.eye(n_out, dtype=np.float32)
+    inv_scale = 1.0 / (n_out / n_in)
+    kernel_scale = np.float32(max(inv_scale, 1.0))
+    sample_f = ((np.arange(n_out, dtype=np.float32) + np.float32(0.5))
+                * np.float32(inv_scale) - np.float32(0.5))
+    x = np.abs(sample_f[None, :]
+               - np.arange(n_in, dtype=np.float32)[:, None]) / kernel_scale
+    w = np.maximum(np.float32(0), np.float32(1) - np.abs(x))  # (n_in, n_out)
+    total = w.sum(axis=0, keepdims=True, dtype=np.float32)
+    ok = np.abs(total) > 1000.0 * np.finfo(np.float32).eps
+    w = np.where(ok, w / np.where(total != 0, total, np.float32(1)),
+                 np.float32(0))
+    inside = (sample_f >= -0.5) & (sample_f <= n_in - 0.5)
+    w = np.where(inside[None, :], w, np.float32(0))
+    return np.ascontiguousarray(w.T.astype(np.float32))
+
+
+@functools.cache
+def band(n_out: int, n_in: int) -> tuple[np.ndarray, np.ndarray]:
+    """The band of ``interp_matrix(n_out, n_in)``: ``(start, weights)``
+    with ``start`` (n_out,) int32 and ``weights`` (n_out, taps) float32,
+    ``taps`` the widest row's span; a narrower row is zero-padded and its
+    start shifted so that ``start + taps <= n_in``."""
+    m = interp_matrix(n_out, n_in)
+    nz = m != 0
+    first = np.where(nz.any(axis=1), nz.argmax(axis=1), 0)
+    last = np.where(nz.any(axis=1), n_in - 1 - nz[:, ::-1].argmax(axis=1), 0)
+    taps = int(max(1, (last - first + 1).max()))
+    start = np.clip(np.minimum(first, n_in - taps), 0, None).astype(np.int32)
+    cols = start[:, None] + np.arange(taps)[None, :]
+    weights = np.take_along_axis(m, np.minimum(cols, n_in - 1), axis=1)
+    weights = np.where(cols < n_in, weights, 0).astype(np.float32)
+    return start, np.ascontiguousarray(weights)
+
+
+@functools.cache
+def _band_on(n_out: int, n_in: int, device: torch.device):
+    start, weights = band(n_out, n_in)
+    return (torch.from_numpy(start).to(device),
+            torch.from_numpy(weights).to(device), weights.shape[1])
+
+
+@functools.cache
+def _kernel():
+    fn = LIBRARIES.get("resize").resize_bilinear
+    ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    fn.argtypes = [ptr, ptr, i64, i32, i32, i32, i32, ptr, ptr, i32, ptr,
+                   ptr, i32, ptr]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def resize_bilinear(frames: torch.Tensor, h2: int, w2: int) -> torch.Tensor:
+    """(n, h1, w1) float32 on the card -> (n, h2, w2) float32."""
+    if not frames.is_cuda:
+        raise ValueError("resize_bilinear needs a CUDA tensor")
+    if frames.dtype != torch.float32 or frames.dim() != 3:
+        raise ValueError(f"resize_bilinear takes (n, h, w) float32, got "
+                         f"{tuple(frames.shape)} {frames.dtype}")
+    if not frames.is_contiguous():
+        raise ValueError("resize_bilinear needs a contiguous tensor")
+    if h2 <= 0 or w2 <= 0:
+        raise ValueError(f"bad output shape {(h2, w2)}")
+    n, h1, w1 = frames.shape
+    dev = frames.device
+    y0, wy, ty = _band_on(h2, h1, dev)
+    x0, wx, tx = _band_on(w2, w1, dev)
+    out = torch.empty((n, h2, w2), dtype=torch.float32, device=dev)
+    rc = _kernel()(frames.data_ptr(), out.data_ptr(), n, h1, w1, h2, w2,
+                   y0.data_ptr(), wy.data_ptr(), ty, x0.data_ptr(),
+                   wx.data_ptr(), tx, torch.cuda.current_stream(dev).cuda_stream)
+    check_launch("resize_bilinear", rc)
+    LAUNCHES.add("resize_bilinear")
+    return out

@@ -1,0 +1,182 @@
+"""The port's CUDA kernels (K1 dct8_dequantize, K2 resize_bilinear,
+K3 dct8_quantize) against their plain PyTorch versions.
+
+This file imports neither ``jax`` nor ``repro``, so it also runs on a GPU
+host that has PyTorch but no JAX.  On the CPU it checks what the kernels
+receive (the wrappers refuse CPU tensors, ``ops`` routes them to the plain
+versions, K2's banded taps reproduce the dense weights); the tests marked
+``cuda`` launch the kernels (and run the operators on the card) and skip
+without a card:
+``PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_kernels.py``.
+"""
+
+import math
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.analytics import operators as O
+from repro_torch.analytics.operators import OPERATORS
+from repro_torch.analytics.scene import generate_segment
+from repro_torch.codec import segment as S
+from repro_torch.core.knobs import FidelityOption, IngestSpec
+from repro_torch.kernels.build import LAUNCHES
+from repro_torch.kernels.dct8 import dct8 as K13
+from repro_torch.kernels.dct8 import ops as dct_ops
+from repro_torch.kernels.dct8.ref import dct8_dequantize_ref, dct8_quantize_ref
+from repro_torch.kernels.resize import ops as resize_ops
+from repro_torch.kernels.resize import resize as K2
+from repro_torch.kernels.resize.ref import resize_ref
+
+# main-path shapes at the 96x160 and 720p specs (SF -> CF grids, NN's
+# pyramid, OCR's plate patch), an upscale, a one-axis resize, identity
+RESIZES = [(96, 160, 72, 120), (96, 160, 64, 106), (72, 120, 56, 88),
+           (27, 78, 9, 26), (36, 60, 96, 160), (96, 160, 96, 120),
+           (64, 64, 14, 14), (9, 26, 9, 26), (720, 1280, 544, 960),
+           (544, 960, 96, 176), (68, 208, 9, 26)]
+
+
+def test_wrappers_take_only_cuda_tensors_and_ops_route_by_device():
+    """A wrapper never falls back: a CPU tensor is refused; the dispatch in
+    ``ops`` sends CPU tensors to the plain versions instead."""
+    x = torch.rand(2, 16, 24) * 255
+    with pytest.raises(ValueError, match="CUDA"):
+        K13.dct8_quantize(x, 2.0)
+    with pytest.raises(ValueError, match="CUDA"):
+        K13.dct8_dequantize(torch.zeros(1, 2, 3, 8, 8, dtype=torch.int16), 2.0)
+    with pytest.raises(ValueError, match="CUDA"):
+        K2.resize_bilinear(x, 8, 12)
+    sym = dct_ops.dct_quantize(x, 2.0)
+    assert torch.equal(sym, dct8_quantize_ref(x, 2.0))
+    assert torch.equal(dct_ops.dct_dequantize(sym, 2.0),
+                       dct8_dequantize_ref(sym, 2.0))
+    assert torch.equal(resize_ops.resize(x, 8, 12), resize_ref(x, 8, 12))
+
+
+@pytest.mark.parametrize("h1,w1,h2,w2", RESIZES)
+def test_resize_band_reproduces_dense_weights(h1, w1, h2, w2):
+    """The banded taps K2 receives are the dense matrix, row for row, and
+    a tap loop over them (the kernel's arithmetic) gives the plain
+    product."""
+    for n_out, n_in in ((h2, h1), (w2, w1)):
+        m = K2.interp_matrix(n_out, n_in)
+        start, wts = K2.band(n_out, n_in)
+        taps = wts.shape[1]
+        assert taps <= 2 * math.ceil(max(1.0, n_in / n_out)) + 1
+        assert (start >= 0).all() and (start + taps <= n_in).all()
+        dense = np.zeros_like(m)
+        for i in range(n_out):
+            dense[i, start[i]:start[i] + taps] = wts[i]
+        assert np.array_equal(dense, m)
+        np.testing.assert_allclose(m.sum(axis=1), 1.0, atol=1e-6)
+    rng = np.random.default_rng(1)
+    x = (rng.random((2, h1, w1)) * 255).astype(np.float32)
+    y0, wy = K2.band(h2, h1)
+    x0, wx = K2.band(w2, w1)
+    out = np.zeros((2, h2, w2), np.float32)
+    for b in range(wx.shape[1]):
+        cols = x[:, :, x0 + b]                             # (2, h1, w2)
+        v = sum(wy[None, :, a, None] * cols[:, y0 + a, :]
+                for a in range(wy.shape[1]))
+        out += wx[None, None, :, b] * v
+    np.testing.assert_allclose(
+        out, resize_ref(torch.from_numpy(x), h2, w2).numpy(), atol=1e-3)
+
+
+# ---------------------------------------------------------------------------
+# on the card
+def _check_exact_division(dev):
+    """Pixels scale to [0, 1] and hits map onto the item grid with the
+    reference's true division: 204 / 255 is exactly 0.8 (License's
+    brightness test) and 426.5 / 853 exactly 0.5 (a cell edge of NN's grid
+    at the 2/3 level of a 1280-wide frame)."""
+    u8 = torch.arange(256, dtype=torch.uint8, device=dev)
+    want = np.arange(256, dtype=np.float32) / np.float32(255)
+    assert np.array_equal(O._unit_float(u8).cpu().numpy(), want)
+    mask = torch.zeros((1, 1, 853), dtype=torch.bool, device=dev)
+    mask[0, 0, 420] = True
+    assert O._grid_hits(mask, 6, 6, 480, 853, 1.0, 8).tolist() == [[0, 0, 4]]
+
+
+def test_operators_divide_exactly_on_cpu():
+    _check_exact_division(torch.device("cpu"))
+
+
+# ---------------------------------------------------------------------------
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(1, 8, 8), (3, 24, 48), (2, 720, 1280)])
+@pytest.mark.parametrize("qs", [1.0, 6.0, 16.0])
+def test_dct8_kernels_match_plain_on_card(cuda, shape, qs):
+    """K3's symbols equal the plain version's (both sum in the same
+    order; at most 1e-6 of them may differ by one where the plain
+    version's float64 emulation of a fused multiply-add rounds twice);
+    K1 within 1e-3, the reference's own Pallas-vs-jnp bound."""
+    g = torch.Generator().manual_seed(7)
+    x = (torch.randn(shape, generator=g) * 40).round().to(cuda)
+    sym = K13.dct8_quantize(x, qs)
+    d = (sym.int() - dct8_quantize_ref(x, qs).int()).abs()
+    assert int(d.max()) <= 1 and int((d > 0).sum()) <= 1e-6 * d.numel()
+    torch.testing.assert_close(K13.dct8_dequantize(sym, qs),
+                               dct8_dequantize_ref(sym, qs), atol=1e-3,
+                               rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h1,w1,h2,w2", RESIZES)
+def test_resize_kernel_matches_plain_on_card(cuda, h1, w1, h2, w2):
+    g = torch.Generator().manual_seed(h1)
+    x = (torch.rand((3, h1, w1), generator=g) * 255).to(cuda)
+    torch.testing.assert_close(K2.resize_bilinear(x, h2, w2),
+                               resize_ref(x, h2, w2), atol=1e-3, rtol=0)
+
+
+@pytest.mark.cuda
+def test_codec_on_card_equals_plain_path(cuda):
+    """A segment encoded on the card through K3/K1 gives the CPU plain
+    path's blob, and decodes on the card (K1) to the plain decode, while
+    the launch counters record the kernels."""
+    rng = np.random.default_rng(3)
+    f = (120 + rng.normal(0, 20, (13, 48, 64))).clip(0, 255).astype(np.uint8)
+    LAUNCHES.reset()
+    kw = dict(quant_scale=2.0, keyframe_interval=5, zstd_level=3)
+    blob = S.encode_segment(torch.from_numpy(f).to(cuda), **kw)
+    assert blob == S.encode_segment(torch.from_numpy(f), **kw)
+    want = np.array([0, 6, 7, 12])
+    got = S.decode_segment(blob, want, device=cuda)
+    assert got.is_cuda
+    assert torch.equal(got.cpu(), S.decode_segment(blob, want, device="cpu"))
+    n = LAUNCHES.snapshot()
+    assert n["dct8_quantize"] == 5 and n["dct8_dequantize"] == 5 + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("op", sorted(OPERATORS))
+def test_operator_on_card_equals_plain_path(cuda, op):
+    """Each operator's items from frames on the card (K2 in NN's pyramid
+    and OCR's plate patch, the hits quantised onto the item grid on the
+    card) equal the plain path's on the same u8 frames, and are not empty;
+    NN launches K2 once for each pyramid level it resizes to."""
+    spec = IngestSpec()
+    frames = torch.from_numpy(generate_segment("jackson", 1, spec)[0])
+    LAUNCHES.reset()
+    got = OPERATORS[op].detect(frames.to(cuda), FidelityOption(), spec)
+    k2 = LAUNCHES.snapshot().get("resize_bilinear", 0)
+    assert got and got == OPERATORS[op].detect(frames, FidelityOption(), spec)
+    if op == "nn":
+        assert k2 == 2  # scales 2/3 and 1/2; scale 1 is the frames' grid
+
+
+@pytest.mark.cuda
+def test_operators_divide_exactly_on_card(cuda):
+    _check_exact_division(cuda)
