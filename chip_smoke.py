@@ -1,6 +1,10 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one card.
 
+Two paths, each through the entry points a user calls, each with the
+launch counters zeroed just before it and read just after: the video path
+(below) and the serving phase (Falcon-Mamba-7B, further below).
+
 Drives the port's main path at the paper's 720p30 through the entry points
 a user calls: ``VideoStore.ingest_segment`` writes 4 segments of
 ``jackson`` and 4 of ``dashcam`` (120 frames of 720x1280 each) into a
@@ -38,8 +42,25 @@ Each kernel is timed (CUDA events) beside its plain version and, where one
 PyTorch call computes the same function, that call (``library_ms``), with
 the least time the card could take (``bound_ms``).
 
-Prints the queries' x-realtime, a ``{"kernels": [...]}`` line, the card's
-name and power limit, and last ``{"ok": true, "device": {...}}``.  Exits
+The serving phase serves ``falcon-mamba-7b`` at its published width and
+depth (64 layers, d_model 4096, inner 8192, state 16, vocab 65024) with
+bf16 weights drawn from a seed on the card: ``launch/serve.py``'s
+``generate`` prefills a batch of 4 random 2048-token prompts and decodes
+32 greedy tokens (the first from the prefill, 31 serve steps), after one
+untimed warm-up run of the same traffic.  K5 (mamba_scan) must launch 64
+times for the prefill and 64 for each of the 31 serve steps.  A profiled
+prefill and 4 profiled decode steps then report the card's kernel time
+against the timed run's wall time (its busy share).  Then, with
+f32 weights and a 128-token prompt, it holds the kernel route against the
+same model with the plain scan forced on the card (logits within 1e-3 of
+their largest magnitude, greedy tokens equal) and 124-token prefill + 4
+decode steps against the full forward (the same bound), and K5 against its
+plain version at one layer's prefill shape (4, 2048, 8192, n 16), at n 8,
+and at S = 1 from a non-zero state (within 1e-5 of the largest value).
+
+Prints the queries' x-realtime, the serving phase's prefill time and
+decode rate, a ``{"kernels": [...]}`` line, the card's name and power
+limit, and last ``{"ok": true, "device": {...}}``.  Exits
 non-zero without that last line when there is no CUDA card or a check
 fails.  Run from the repository root: ``python3 chip_smoke.py``.
 """
@@ -63,6 +84,17 @@ ACCURACY = 0.8
 # NVIDIA H100 SXM data sheet: HBM3 bandwidth, fp32 without tensor cores
 PEAK_BYTES_S = 3.35e12
 PEAK_FP32_FLOP_S = 67e12
+# Hopper special-function units: 16 exp2 per SM per clock, 132 SMs
+SFU_PER_SM_CLOCK = 16
+SMS = 132
+
+# the serving phase: Falcon-Mamba-7B at full width, bf16 weights
+SERVE_ARCH = "falcon-mamba-7b"
+SERVE_BATCH, SERVE_PROMPT, SERVE_NEW = 4, 2048, 32
+SERVE_SEED = 0
+HOLD_PROMPT, HOLD_DECODE, HOLD_NEW = 128, 4, 8
+LOGIT_TOL = 1e-3  # of the largest |logit|: f32 weights, sums reordered
+SCAN_TOL = 1e-5   # of the largest |value|: K5 vs its plain version
 
 
 def card_line() -> str:
@@ -203,6 +235,236 @@ def bound_ms(nbytes: float, flops: float) -> tuple[float, str]:
                                        else "operations")
 
 
+def max_sm_clock_hz() -> float:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        timeout=60)
+    return float(out.stdout.split()[0]) * 1e6
+
+
+def scan_inputs(torch, bsz, s, inner, n, x_dtype, dev, seed, with_h0=False):
+    """K5's inputs as the Mamba mixer gives them on the card: float32
+    softplus steps, silu'd activations and B/C rows in ``x_dtype``,
+    ``a = -(1..n)`` per channel, optionally a non-zero initial state."""
+    import torch.nn.functional as F
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=dev)
+
+    delta = F.softplus(randn(bsz, s, inner) - 2.0)
+    xc = F.silu(randn(bsz, s, inner)).to(x_dtype)
+    bmat, cmat = randn(bsz, s, n).to(x_dtype), randn(bsz, s, n).to(x_dtype)
+    a = -torch.arange(1, n + 1, dtype=torch.float32, device=dev).repeat(
+        inner, 1)
+    return delta, xc, bmat, cmat, a, (randn(bsz, inner, n) if with_h0
+                                      else None)
+
+
+def device_time(torch, fn) -> tuple[float, int, list]:
+    """Runs ``fn()`` once under ``torch.profiler``; returns the time the
+    card was busy with kernels, in ms (the union of the kernels'
+    intervals), the number of kernels, and the six costliest kernels as
+    (name, ms, launches).  (0.0, 0, []) when the trace holds no kernel."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+               and e.time_range.end > e.time_range.start
+               and not e.name.startswith("Command Buffer Full")]
+    busy, end = 0.0, float("-inf")
+    for e in sorted(kernels, key=lambda e: e.time_range.start):
+        start = max(e.time_range.start, end)
+        if e.time_range.end > start:
+            busy += e.time_range.end - start
+            end = e.time_range.end
+    by_name: dict[str, list] = {}
+    for e in kernels:
+        row = by_name.setdefault(e.name, [0.0, 0])
+        row[0] += (e.time_range.end - e.time_range.start) / 1e3
+        row[1] += 1
+    top = sorted(((n, ms, c) for n, (ms, c) in by_name.items()),
+                 key=lambda r: -r[1])[:6]
+    return busy / 1e3, len(kernels), top
+
+
+def rel_err(torch, got, want) -> float:
+    """max |got - want| over max(1, max |want|)."""
+    return float((got.float() - want.float()).abs().max()) / max(
+        1.0, float(want.float().abs().max()))
+
+
+def serving_phase(torch, check, cfg, dev) -> dict:
+    """``cfg`` (Falcon-Mamba-7B) served on ``dev``, the kernel route held
+    against the plain scan and decode against forward, and K5 held and
+    timed against its plain version.  Returns K5's ``kernels`` row."""
+    import gc
+
+    from repro_torch.kernels import build
+    from repro_torch.kernels.mamba_scan.mamba_scan import mamba_scan
+    from repro_torch.kernels.mamba_scan.ref import mamba_scan_ref
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import (decode_step, forward, init_params,
+                                    prefill)
+    from repro_torch.models import recurrent
+
+    print(f"serve: {cfg.name}, {cfg.n_layers} layers, d_model {cfg.d_model}, "
+          f"inner {cfg.ssm.expand * cfg.d_model}, state {cfg.ssm.state_dim}, "
+          f"vocab {cfg.vocab_size}, {cfg.param_count() / 1e9:.2f} B params",
+          flush=True)
+    t0 = time.perf_counter()
+    model = init_params(cfg, SERVE_SEED, torch.bfloat16, dev)
+    torch.cuda.synchronize()
+    weight_bytes = sum(p.numel() * p.element_size()
+                       for p in model.parameters())
+    print(f"serve: bf16 weights drawn on the card in "
+          f"{time.perf_counter() - t0:.1f} s, {weight_bytes / 1e9:.2f} GB",
+          flush=True)
+    gen = torch.Generator(device=dev).manual_seed(SERVE_SEED + 1)
+    prompts = torch.randint(0, cfg.vocab_size, (SERVE_BATCH, SERVE_PROMPT),
+                            generator=gen, device=dev)
+
+    # -- the timed serve, counted ---------------------------------------
+    generate(model, cfg, prompts, SERVE_NEW)  # warm-up, not counted
+    torch.cuda.reset_peak_memory_stats()
+    build.LAUNCHES.reset()
+    toks, t_prefill, t_decode = generate(model, cfg, prompts, SERVE_NEW)
+    torch.cuda.synchronize()
+    launches = build.LAUNCHES.snapshot()
+    steps = SERVE_NEW - 1
+    print(f"serve: prefill {SERVE_BATCH}x{SERVE_PROMPT} in "
+          f"{t_prefill * 1e3:.1f} ms; {steps} serve steps in "
+          f"{t_decode * 1e3:.1f} ms ({t_decode / steps * 1e3:.2f} ms a step, "
+          f"{SERVE_BATCH * steps / t_decode:.1f} tok/s decode); peak "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB; "
+          f"launches {launches}", flush=True)
+    want = cfg.n_layers * (1 + steps)
+    check(launches.get("mamba_scan", 0) == want,
+          f"serve: mamba_scan launched {launches.get('mamba_scan', 0)} "
+          f"times, {cfg.n_layers} per prefill and per serve step "
+          f"({want} expected)")
+    check(tuple(toks.shape) == (SERVE_BATCH, SERVE_NEW)
+          and bool(((toks >= 0) & (toks < cfg.vocab_size)).all()),
+          f"serve: greedy tokens {tuple(toks.shape)} in [0, vocab)")
+
+    # where the device time goes: kernel time under the profiler, against
+    # the unprofiled wall time of the timed run above
+    cache = {}
+
+    def run_prefill():
+        cache["c"] = prefill(model, cfg, {"tokens": prompts})[1]
+
+    def run_steps():
+        tok = toks[:, -1]
+        c = cache["c"]
+        for _ in range(4):
+            logits, c = decode_step(model, cfg, {"tokens": tok[:, None]}, c)
+            tok = torch.argmax(logits, dim=-1)
+
+    for what, fn, wall_ms in (("prefill", run_prefill, t_prefill * 1e3),
+                              ("4 decode steps", run_steps,
+                               4 * t_decode / steps * 1e3)):
+        busy, count, top = device_time(torch, fn)
+        share = (f"{busy / wall_ms:.1%} of the timed run's {wall_ms:.1f} ms"
+                 if busy else "not measured (no device time in the trace)")
+        print(f"serve profile, {what}: {count} kernels, {busy:.1f} ms on "
+              f"the card, {share}; top: " + "; ".join(
+                  f"{name[:60]} {ms:.1f} ms x{n}" for name, ms, n in top),
+              flush=True)
+    del model, cache
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- hold on the card: f32 weights, a 128-token prompt ----------------
+    model = init_params(cfg, SERVE_SEED, torch.float32, dev)
+    hold = prompts[:, :HOLD_PROMPT]
+    full = forward(model, cfg, {"tokens": hold})
+    p = HOLD_PROMPT - HOLD_DECODE
+    logits, cache = prefill(model, cfg, {"tokens": hold[:, :p]})
+    errs = [rel_err(torch, logits, full[:, :p])]
+    for t in range(p, HOLD_PROMPT):
+        step, cache = decode_step(model, cfg, {"tokens": hold[:, t:t + 1]},
+                                  cache)
+        errs.append(rel_err(torch, step, full[:, t]))
+    check(bool(torch.isfinite(full).all())
+          and tuple(full.shape) == (SERVE_BATCH, HOLD_PROMPT, cfg.vocab_size)
+          and max(errs) <= LOGIT_TOL,
+          f"hold: prefill({p}) + {HOLD_DECODE} decode steps vs forward"
+          f"({HOLD_PROMPT}), f32, logits {tuple(full.shape)} finite, max "
+          f"|d| {max(errs):.3g} of the largest |logit| "
+          f"({float(full.abs().max()):.3g})")
+    toks_k, _, _ = generate(model, cfg, hold, HOLD_NEW)
+    kernel_scan = recurrent.selective_scan
+    recurrent.selective_scan = mamba_scan_ref  # the plain scan, on the card
+    try:
+        full_p = forward(model, cfg, {"tokens": hold})
+        toks_p, _, _ = generate(model, cfg, hold, HOLD_NEW)
+    finally:
+        recurrent.selective_scan = kernel_scan
+    err = rel_err(torch, full, full_p)
+    check(err <= LOGIT_TOL and torch.equal(toks_k, toks_p),
+          f"hold: kernel route vs plain scan on the card, f32, forward "
+          f"logits max |d| {err:.3g} of the largest |logit|, "
+          f"{HOLD_NEW} greedy tokens equal: {torch.equal(toks_k, toks_p)}")
+    del model, full, full_p, logits, cache
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- K5 against its plain version, at one layer's shapes --------------
+    inner, n = cfg.ssm.expand * cfg.d_model, cfg.ssm.state_dim
+    x_dtype = torch.bfloat16
+    scan_errs = {}
+    for name, shape, with_h0 in (
+            ("prefill", (SERVE_BATCH, SERVE_PROMPT, inner, n), False),
+            ("n 8", (SERVE_BATCH, SERVE_PROMPT, inner, 8), False),
+            ("decode from a state", (SERVE_BATCH, 1, inner, n), True)):
+        args = scan_inputs(torch, *shape, x_dtype, dev,
+                           seed=len(scan_errs), with_h0=with_h0)
+        y, h = mamba_scan(*args)
+        y_ref, h_ref = mamba_scan_ref(*args)
+        scan_errs[name] = (float((y - y_ref).abs().max()),
+                           float((h - h_ref).abs().max()))
+        check(rel_err(torch, y, y_ref) <= SCAN_TOL
+              and rel_err(torch, h, h_ref) <= SCAN_TOL,
+              f"K5 mamba_scan vs plain at {name} {shape}: max |d| y "
+              f"{scan_errs[name][0]:.3g}, h_T {scan_errs[name][1]:.3g}")
+    args = scan_inputs(torch, SERVE_BATCH, SERVE_PROMPT, inner, n, x_dtype,
+                       dev, seed=0)
+    bsz, s = SERVE_BATCH, SERVE_PROMPT
+    elems = bsz * s * inner * n
+    nbytes = (bsz * s * inner * (4 + 2)          # delta f32, xc bf16 in
+              + 2 * bsz * s * n * 2 + inner * n * 4
+              + bsz * s * inner * 4 + bsz * inner * n * 4)  # y, h_T out
+    flops = 6 * elems + bsz * s * inner
+    clock = max_sm_clock_hz()
+    t_sfu = elems / (SFU_PER_SM_CLOCK * SMS * clock)
+    t_bytes, t_ops = nbytes / PEAK_BYTES_S, flops / PEAK_FP32_FLOP_S
+    bound = max(t_bytes, t_ops, t_sfu)
+    print(f"K5 bound at {(bsz, s, inner, n)}: {nbytes / 1e9:.3f} GB -> "
+          f"{t_bytes * 1e3:.4f} ms; {flops / 1e9:.2f} GFLOP fp32 -> "
+          f"{t_ops * 1e3:.4f} ms; {elems / 1e9:.3f} G exp on the SFUs at "
+          f"{clock / 1e9:.3f} GHz (clocks.max.sm) -> {t_sfu * 1e3:.4f} ms",
+          flush=True)
+    return {"name": "mamba_scan", "route": "cuda",
+            "source": "src/repro_torch/csrc/mamba_scan.cu",
+            "replaces": "src/repro/kernels/mamba_scan/mamba_scan.py:56",
+            "launches": launches.get("mamba_scan", 0),
+            "max_abs_err": max(max(e) for e in scan_errs.values()),
+            "ms": time_ms(torch, lambda: mamba_scan(*args), 20),
+            "plain_ms": time_ms(torch, lambda: mamba_scan_ref(*args), 2),
+            "bound_ms": bound * 1e3,
+            "bound_by": "bytes" if t_bytes >= max(t_ops, t_sfu)
+            else "operations",
+            "library_ms": None}
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -215,6 +477,7 @@ def main() -> int:
     from repro_torch.analytics.accuracy import f1_score
     from repro_torch.codec import segment as S
     from repro_torch.codec import transform as T
+    from repro_torch.configs import get_config
     from repro_torch.core.knobs import FidelityOption, IngestSpec
     from repro_torch.kernels import build
     from repro_torch.kernels.dct8.dct8 import dct8_dequantize, dct8_quantize
@@ -241,7 +504,8 @@ def main() -> int:
         check(f1 >= min_f1, f"{what}: F1 {f1:.4f} ({len(card)} vs "
               f"{len(plain)} items, neither may be empty)")
 
-    t0 = time.perf_counter()
+    t_start = t0 = time.perf_counter()
+    rows: list[dict] = []
     reports = build.compile_all()
     print(f"build: {time.perf_counter() - t0:.1f} s", flush=True)
     for name, log in reports.items():
@@ -434,7 +698,6 @@ def main() -> int:
         sources = {"dct8_quantize": "src/repro_torch/csrc/dct8.cu",
                    "dct8_dequantize": "src/repro_torch/csrc/dct8.cu",
                    "resize_bilinear": "src/repro_torch/csrc/resize.cu"}
-        rows = []
         for name, err, fn, plain, lib, (b_ms, b_by), replaces in kernels:
             rows.append({
                 "name": name, "route": "cuda", "source": sources[name],
@@ -443,9 +706,17 @@ def main() -> int:
                 "plain_ms": time_ms(torch, plain, 3), "bound_ms": b_ms,
                 "bound_by": b_by,
                 "library_ms": None if lib is None else time_ms(torch, lib, 5)})
-        print(json.dumps({"kernels": rows}), flush=True)
     finally:
         shutil.rmtree(work, ignore_errors=True)
+    print(f"video path: {time.perf_counter() - t_start:.1f} s", flush=True)
+
+    # -- the serving phase: Falcon-Mamba-7B, counters zeroed inside ---------
+    t0 = time.perf_counter()
+    rows.append(serving_phase(torch, check, get_config(SERVE_ARCH),
+                              torch.device("cuda")))
+    print(f"serving phase: {time.perf_counter() - t0:.1f} s; whole run "
+          f"{time.perf_counter() - t_start:.1f} s", flush=True)
+    print(json.dumps({"kernels": rows}), flush=True)
 
     if failures:
         print(f"chip_smoke: {len(failures)} check(s) failed: {failures}",

@@ -3,9 +3,10 @@
 ``src/repro/kernels/resize/resize.py::resize_bilinear``.
 
 ``interp_matrix`` is the port's copy of the reference's weight matrix, here
-computed the way ``jax.image.resize(..., "bilinear")`` computes it (float32
-sample positions, column-normalised triangle filter), so the port matches
-that function and not only the reference kernel's float64 weights.  The
+computed the way ``jax.image.resize(..., "bilinear")`` computes it under
+``jit`` (float32 sample positions, column-normalised triangle filter, in
+XLA's arithmetic), so the port matches that function and not only the
+reference kernel's float64 weights.  The
 kernel takes the band of each matrix (``band``): per output row a start
 index and at most ``2·ceil(support)+1`` weights.
 """
@@ -21,22 +22,47 @@ import torch
 from ..build import LAUNCHES, LIBRARIES, check_launch
 
 
+def _xla_column_sums(w: np.ndarray) -> np.ndarray:
+    """Column sums of ``w`` (n_in, n_out) float32 in the order XLA:CPU
+    computes ``jnp.sum(w, axis=0)``: while more than 32 rows remain, rows
+    are zero-padded evenly on both ends to a multiple of 32 and each run of
+    32 is summed in order (the tree-reduction rewrite into reduce-windows);
+    the last <= 32 partial sums are then added in order."""
+    while w.shape[0] > 32:
+        n = w.shape[0]
+        m = -(-n // 32)
+        lo = (m * 32 - n) // 2
+        padded = np.zeros((m * 32, w.shape[1]), np.float32)
+        padded[lo:lo + n] = w
+        acc = np.zeros((m, w.shape[1]), np.float32)
+        for j in range(32):
+            acc = acc + padded[j::32]
+        w = acc
+    acc = np.zeros(w.shape[1], np.float32)
+    for row in w:
+        acc = acc + row
+    return acc[None, :]
+
+
 @functools.cache
 def interp_matrix(n_out: int, n_in: int) -> np.ndarray:
     """(n_out, n_in) float32 interpolation weights of
     ``jax.image.resize(..., "bilinear")`` along one axis (antialiased
     triangle filter: support widens by the downscale factor; each output's
-    weights normalised to sum 1)."""
+    weights normalised to sum 1), in the arithmetic XLA compiles that
+    function's weights to under ``jit``: the division by the kernel scale
+    becomes a multiply by its float32 reciprocal, and the normalising sums
+    take XLA:CPU's reduction order (``_xla_column_sums``)."""
     if n_out == n_in:
         return np.eye(n_out, dtype=np.float32)
     inv_scale = 1.0 / (n_out / n_in)
-    kernel_scale = np.float32(max(inv_scale, 1.0))
+    inv_kernel_scale = np.float32(1) / np.float32(max(inv_scale, 1.0))
     sample_f = ((np.arange(n_out, dtype=np.float32) + np.float32(0.5))
                 * np.float32(inv_scale) - np.float32(0.5))
     x = np.abs(sample_f[None, :]
-               - np.arange(n_in, dtype=np.float32)[:, None]) / kernel_scale
-    w = np.maximum(np.float32(0), np.float32(1) - np.abs(x))  # (n_in, n_out)
-    total = w.sum(axis=0, keepdims=True, dtype=np.float32)
+               - np.arange(n_in, dtype=np.float32)[:, None]) * inv_kernel_scale
+    w = np.maximum(np.float32(0), np.float32(1) - x)  # (n_in, n_out)
+    total = _xla_column_sums(w)
     ok = np.abs(total) > 1000.0 * np.finfo(np.float32).eps
     w = np.where(ok, w / np.where(total != 0, total, np.float32(1)),
                  np.float32(0))

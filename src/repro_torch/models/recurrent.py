@@ -1,0 +1,123 @@
+"""Recurrent sequence mixing of the port (``src/repro/models/recurrent.py``),
+Mamba-1 half: the selective SSM block with its depthwise causal conv.
+
+The projections and the conv are plain PyTorch, as they are jnp in the
+reference; the scan -- the reference's ``scan_impl="step"`` body -- goes
+through K5 (``kernels/mamba_scan/ops.py``): the CUDA kernel on the card,
+its plain version on the CPU.  One ``MambaMixer`` call serves both forms:
+the full sequence from a zero state (train, prefill) and one step from a
+carried state (decode).  The RG-LRU half comes with the recurrentgemma
+serving slice.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..kernels.mamba_scan.ops import selective_scan
+from .layers import truncated_normal
+
+
+def _causal_conv(x: torch.Tensor, w: torch.Tensor, state=None):
+    """x: (B, S, W) depthwise causal conv with kernel (cw, W).
+    ``state``: (B, cw-1, W) history for decode; returns (y, new_state).
+    The taps are summed in the reference's order; the new state is a copy,
+    so it does not keep the padded sequence alive."""
+    cw = w.shape[0]
+    if state is None:
+        state = torch.zeros((x.shape[0], cw - 1, x.shape[2]), dtype=x.dtype,
+                            device=x.device)
+    xp = torch.cat([state, x], dim=1)
+    y = sum(xp[:, i:i + x.shape[1]] * w[i] for i in range(cw))
+    new_state = xp[:, xp.shape[1] - (cw - 1):].clone()
+    return y, new_state
+
+
+def _param(shape, dtype, device) -> nn.Parameter:
+    return nn.Parameter(torch.empty(shape, dtype=dtype, device=device),
+                        requires_grad=False)
+
+
+class MambaMixer(nn.Module):
+    """One Mamba-1 block's sequence mixer, with the reference's parameter
+    names and layouts (``x @ in_proj``, conv taps (cw, inner), ...).
+    Projection weights take the model's dtype; ``dt_bias``, ``a_log`` and
+    ``d`` are float32, as in the reference.  Built empty: ``init_mamba``
+    draws the weights, ``convert.params_from_numpy`` copies them in."""
+
+    def __init__(self, cfg, dtype, device):
+        super().__init__()
+        ssm = cfg.ssm
+        d = cfg.d_model
+        self.inner = ssm.expand * d
+        self.state_dim = ssm.state_dim
+        self.dt_rank = ssm.dt_rank or -(-d // 16)
+        inner, n, r = self.inner, self.state_dim, self.dt_rank
+        self.in_proj = _param((d, 2 * inner), dtype, device)
+        self.conv = _param((ssm.conv_width, inner), dtype, device)
+        self.x_proj = _param((inner, r + 2 * n), dtype, device)
+        self.dt_proj = _param((r, inner), dtype, device)
+        self.dt_bias = _param((inner,), torch.float32, device)
+        self.a_log = _param((inner, n), torch.float32, device)
+        self.d = _param((inner,), torch.float32, device)
+        self.out_proj = _param((inner, d), dtype, device)
+
+    def forward(self, x: torch.Tensor, state: dict | None = None):
+        """x: (B, S, d).  ``state``: None (a zero state) or dict(conv, h)
+        as ``mamba_init_state`` lays it out.  Returns (out (B, S, d),
+        new_state)."""
+        n, r = self.state_dim, self.dt_rank
+        xi, z = torch.chunk(x @ self.in_proj, 2, dim=-1)
+        xc, conv_state = _causal_conv(
+            xi, self.conv, None if state is None else state["conv"])
+        xc = F.silu(xc)
+        dt, bmat, cmat = torch.split(xc @ self.x_proj, [r, n, n], dim=-1)
+        delta = F.softplus(dt @ self.dt_proj + self.dt_bias)
+        a = -torch.exp(self.a_log)
+        y, h_t = selective_scan(delta, xc, bmat.contiguous(),
+                                cmat.contiguous(), a,
+                                None if state is None else state["h"])
+        y = y + self.d * xc.to(torch.float32)
+        y = y.to(x.dtype) * F.silu(z)
+        return y @ self.out_proj, {"conv": conv_state, "h": h_t}
+
+
+def init_mamba(mixer: MambaMixer, generator: torch.Generator) -> MambaMixer:
+    """Draw ``mixer``'s weights in place from ``generator`` with the
+    reference's distributions (``init_mamba`` there): truncated normals at
+    fan-in scale, ``dt_bias`` the softplus inverse of a log-uniform step in
+    [1e-3, 1e-1], ``a_log = log(1..n)`` per channel, ``d = 1``."""
+    dev = mixer.in_proj.device
+    d = mixer.in_proj.shape[0]
+    inner, n, r = mixer.inner, mixer.state_dim, mixer.dt_rank
+    with torch.no_grad():
+        for p, scale in ((mixer.in_proj, d ** -0.5),
+                         (mixer.conv, inner ** -0.5),
+                         (mixer.x_proj, inner ** -0.5),
+                         (mixer.dt_proj, r ** -0.5)):
+            p.copy_(truncated_normal(p.shape, scale, p.dtype, generator, dev))
+        u = torch.empty((inner,), dtype=torch.float32, device=dev)
+        u.uniform_(math.log(1e-3), math.log(1e-1), generator=generator)
+        mixer.dt_bias.copy_(torch.log(torch.expm1(torch.exp(u))))
+        mixer.a_log.copy_(torch.log(
+            torch.arange(1, n + 1, dtype=torch.float32, device=dev)
+            .repeat(inner, 1)))
+        mixer.d.fill_(1.0)
+        mixer.out_proj.copy_(truncated_normal(
+            mixer.out_proj.shape, inner ** -0.5, mixer.out_proj.dtype,
+            generator, dev))
+    return mixer
+
+
+def mamba_init_state(cfg, batch: int, dtype, device) -> dict:
+    """A zero decode state: ``conv`` (B, cw-1, inner) in the activation
+    dtype, ``h`` (B, inner, n) float32."""
+    inner = cfg.ssm.expand * cfg.d_model
+    return {"conv": torch.zeros((batch, cfg.ssm.conv_width - 1, inner),
+                                dtype=dtype, device=device),
+            "h": torch.zeros((batch, inner, cfg.ssm.state_dim),
+                             dtype=torch.float32, device=device)}

@@ -212,17 +212,73 @@ RESIZES = [(96, 160, 72, 120), (96, 160, 64, 106), (72, 120, 56, 88),
 
 @pytest.mark.parametrize("h1,w1,h2,w2", RESIZES)
 def test_resize_matches_jax_image_resize(h1, w1, h2, w2):
-    """Within 1e-3 on 0-255 data.  The port's weights are the exact
-    float32 formula of ``jax.image.resize``; under ``jit`` XLA computes
-    them up to 3e-6 differently, so the two differ by up to ~7e-4 here
-    (and by 1.4e-3 on a 160 -> 104 column resize, off the main path, where
-    the port is the one closer to float64 arithmetic)."""
+    """Within 1e-3 on 0-255 data.  The port's weights follow what XLA
+    compiles ``jax.image.resize``'s weights to, up to where the compiler
+    fuses a multiply-add (``test_resize_weights_follow_xla_jit``), and the
+    two sum the resize products in different orders."""
     rng = np.random.default_rng(h1 * w2)
     x = (rng.random((3, h1, w1)) * 255).astype(np.float32)
     ref = np.asarray(jax.image.resize(jnp.asarray(x), (3, h2, w2),
                                       "bilinear"))
     got = T.resize(torch.from_numpy(x), h2, w2).numpy()
     np.testing.assert_allclose(got, ref, atol=1e-3, rtol=0)
+
+
+# (n_in, n_out) of every one-axis resize the operators, the fidelity
+# conversions of these tests and chip_smoke.py run: 96x160 CF grids, NN's
+# pyramid at 96x160 and 720p, OCR's plate patch, the 720p SF transcodes
+# and the 100p rung, and the upscales of RESIZES
+WEIGHT_PAIRS = [(96, 72), (160, 120), (96, 64), (160, 106), (72, 56),
+                (120, 88), (96, 48), (160, 80), (96, 32), (160, 64),
+                (72, 32), (120, 64), (96, 16), (160, 32), (48, 24), (80, 48),
+                (27, 9), (78, 26), (68, 9), (208, 26), (64, 14), (36, 96),
+                (60, 160), (720, 544), (1280, 960), (544, 96), (960, 176),
+                (720, 480), (1280, 853), (720, 360), (1280, 640)]
+# pairs whose jitted weights do not depend on whether the compiler fuses
+# ``1 - |d|·r`` or the sample position into a multiply-add: equal there
+WEIGHTS_EQUAL = {(96, 72), (160, 120), (78, 26), (208, 26), (36, 96),
+                 (60, 160), (720, 480), (1280, 960), (720, 360), (1280, 640),
+                 (96, 48), (160, 80), (48, 24)}
+
+
+def _xla_weights(n_in, n_out):
+    """The weights the reference's jitted resize applies along one axis,
+    read back by resizing an identity: (n_out, n_in) float32."""
+    eye = jnp.eye(n_in, dtype=jnp.float32)[None]
+    return np.asarray(RT._resize(eye, h=n_out, w=n_in))[0]
+
+
+@pytest.mark.parametrize("n", [5, 27, 32, 33, 64, 96, 720, 1056, 1280])
+def test_resize_weight_sums_take_xla_order(n):
+    """``_xla_column_sums`` reproduces ``jnp.sum(w, axis=0)`` under ``jit``
+    bit for bit: runs of 32 rows summed in order after an even zero pad,
+    repeated while more than 32 partial sums remain."""
+    from repro_torch.kernels.resize.resize import _xla_column_sums
+
+    w = np.random.default_rng(n).random((n, 37)).astype(np.float32)
+    want = np.asarray(jax.jit(lambda a: jnp.sum(a, axis=0))(w))
+    assert np.array_equal(_xla_column_sums(w)[0], want)
+
+
+@pytest.mark.parametrize("n_in,n_out", WEIGHT_PAIRS)
+def test_resize_weights_follow_xla_jit(n_in, n_out):
+    """``interp_matrix`` against the weights the reference's jitted
+    ``jax.image.resize`` applies.  The port reproduces XLA's rewrite of
+    the division by the kernel scale into a multiply by its reciprocal and
+    the reduction order of the normalising sums; it does not reproduce
+    where LLVM fuses a multiply-add in the compiled loops, which changes
+    with the host's vector width and the loop's tail.  So the weights are
+    equal for the pairs that fusion cannot change and within 2e-5 for the
+    rest; the test prints how many differ (ROADMAP §3)."""
+    from repro_torch.kernels.resize.resize import interp_matrix
+
+    got, want = interp_matrix(n_out, n_in), _xla_weights(n_in, n_out)
+    n_diff = int((got != want).sum())
+    print(f"{n_in}->{n_out}: {n_diff} of {got.size} weights differ, max "
+          f"{float(np.abs(got - want).max()):.3g}")
+    assert float(np.abs(got - want).max()) <= 2e-5
+    if (n_in, n_out) in WEIGHTS_EQUAL:
+        assert n_diff == 0
 
 
 @pytest.mark.parametrize("stream", ["jackson", "dashcam"])

@@ -1,12 +1,13 @@
 """The port's CUDA kernels (K1 dct8_dequantize, K2 resize_bilinear,
-K3 dct8_quantize) against their plain PyTorch versions.
+K3 dct8_quantize, K5 mamba_scan) against their plain PyTorch versions.
 
 This file imports neither ``jax`` nor ``repro``, so it also runs on a GPU
 host that has PyTorch but no JAX.  On the CPU it checks what the kernels
 receive (the wrappers refuse CPU tensors, ``ops`` routes them to the plain
-versions, K2's banded taps reproduce the dense weights); the tests marked
-``cuda`` launch the kernels (and run the operators on the card) and skip
-without a card:
+versions, K2's banded taps reproduce the dense weights, K5's plain scan
+carries its state across a split); the tests marked ``cuda`` launch the
+kernels (and run the operators and the reduced Falcon-Mamba on the card)
+and skip without a card:
 ``PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_kernels.py``.
 """
 
@@ -26,6 +27,9 @@ from repro_torch.kernels.build import LAUNCHES
 from repro_torch.kernels.dct8 import dct8 as K13
 from repro_torch.kernels.dct8 import ops as dct_ops
 from repro_torch.kernels.dct8.ref import dct8_dequantize_ref, dct8_quantize_ref
+from repro_torch.kernels.mamba_scan import mamba_scan as K5
+from repro_torch.kernels.mamba_scan import ops as scan_ops
+from repro_torch.kernels.mamba_scan.ref import mamba_scan_ref
 from repro_torch.kernels.resize import ops as resize_ops
 from repro_torch.kernels.resize import resize as K2
 from repro_torch.kernels.resize.ref import resize_ref
@@ -83,6 +87,56 @@ def test_resize_band_reproduces_dense_weights(h1, w1, h2, w2):
         out += wx[None, None, :, b] * v
     np.testing.assert_allclose(
         out, resize_ref(torch.from_numpy(x), h2, w2).numpy(), atol=1e-3)
+
+
+def _scan_inputs(bsz, s, inner, n, dtype=torch.float32, seed=0,
+                 with_h0=False, device="cpu"):
+    """K5's inputs as the Mamba mixer gives them: softplus steps (float32
+    there, as the mixer's bias is), silu'd activations and B/C rows in
+    ``dtype``, ``a = -(1..n)`` per channel, and optionally a non-zero
+    initial state."""
+    g = torch.Generator().manual_seed(seed)
+    delta = torch.nn.functional.softplus(
+        torch.randn((bsz, s, inner), generator=g) - 2.0)
+    xc = torch.nn.functional.silu(torch.randn((bsz, s, inner), generator=g))
+    bmat = torch.randn((bsz, s, n), generator=g)
+    cmat = torch.randn((bsz, s, n), generator=g)
+    a = -torch.arange(1, n + 1, dtype=torch.float32).repeat(inner, 1)
+    h0 = torch.randn((bsz, inner, n), generator=g) if with_h0 else None
+    out = [delta, xc.to(dtype), bmat.to(dtype), cmat.to(dtype), a, h0]
+    return [None if t is None else t.to(device) for t in out]
+
+
+def test_mamba_scan_wrapper_refuses_cpu_and_ops_routes_to_plain():
+    """K5's wrapper never falls back: CPU tensors and state sizes it is not
+    built for are refused; ``ops`` sends CPU tensors to the plain scan."""
+    args = _scan_inputs(2, 5, 12, 8, with_h0=True)
+    with pytest.raises(ValueError, match="CUDA"):
+        K5.mamba_scan(*args)
+    with pytest.raises(ValueError, match="state sizes"):
+        K5.mamba_scan(*_scan_inputs(1, 2, 4, 3))
+    y, h = scan_ops.selective_scan(*args)
+    y_ref, h_ref = mamba_scan_ref(*args)
+    assert torch.equal(y, y_ref) and torch.equal(h, h_ref)
+    assert y.dtype == h.dtype == torch.float32
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_mamba_scan_plain_carries_state_across_a_split(dtype):
+    """Scanning S steps at once equals scanning a prefix and then the rest
+    from the prefix's final state -- the prefill/decode hand-off -- and
+    an absent initial state equals a zero one."""
+    delta, xc, b, c, a, h0 = _scan_inputs(2, 9, 16, 8, dtype, seed=3,
+                                          with_h0=True)
+    y, h = mamba_scan_ref(delta, xc, b, c, a, h0)
+    y1, h1 = mamba_scan_ref(delta[:, :6], xc[:, :6], b[:, :6], c[:, :6], a,
+                            h0)
+    y2, h2 = mamba_scan_ref(delta[:, 6:], xc[:, 6:], b[:, 6:], c[:, 6:], a,
+                            h1)
+    assert torch.equal(torch.cat([y1, y2], dim=1), y) and torch.equal(h2, h)
+    y0, _ = mamba_scan_ref(delta, xc, b, c, a)
+    assert torch.equal(y0, mamba_scan_ref(delta, xc, b, c, a,
+                                          torch.zeros_like(h0))[0])
 
 
 # ---------------------------------------------------------------------------
@@ -180,3 +234,52 @@ def test_operator_on_card_equals_plain_path(cuda, op):
 @pytest.mark.cuda
 def test_operators_divide_exactly_on_card(cuda):
     _check_exact_division(cuda)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [8, 16])
+@pytest.mark.parametrize("s", [1, 300])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("with_h0", [False, True])
+def test_mamba_scan_kernel_matches_plain_on_card(cuda, n, s, dtype,
+                                                 with_h0):
+    """K5 against its plain version on the same card inputs: y and the
+    final state within 1e-5 relative to their largest value (the two sum
+    the C-contraction in different orders); a width that is not a
+    multiple of the kernel's 128-channel block exercises the ragged
+    edge."""
+    args = _scan_inputs(3, s, 200, n, dtype, seed=s + n, with_h0=with_h0,
+                        device=cuda)
+    LAUNCHES.reset()
+    y, h = K5.mamba_scan(*args)
+    torch.cuda.synchronize()
+    assert LAUNCHES.snapshot() == {"mamba_scan": 1}
+    y_ref, h_ref = mamba_scan_ref(*args)
+    for got, want in ((y, y_ref), (h, h_ref)):
+        scale = max(1.0, float(want.abs().max()))
+        assert float((got - want).abs().max()) <= 1e-5 * scale
+
+
+@pytest.mark.cuda
+def test_reduced_falcon_mamba_on_card_matches_plain_path(cuda):
+    """The reduced Falcon-Mamba's prefill and decode steps on the card
+    (K5 once per layer and step) give the CPU plain path's logits within
+    1e-4, and the same greedy tokens."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import init_params
+
+    cfg = get_config("falcon-mamba-7b").reduced()
+    model_cpu = init_params(cfg, seed=0, device="cpu")
+    model = init_params(cfg, seed=0, device="cpu").to(cuda)
+    prompts = torch.randint(0, cfg.vocab_size, (2, 12),
+                            generator=torch.Generator().manual_seed(1))
+    LAUNCHES.reset()
+    toks, _, _ = generate(model, cfg, prompts.to(cuda), 5)
+    assert LAUNCHES.snapshot() == {"mamba_scan": cfg.n_layers * 5}
+    want, _, _ = generate(model_cpu, cfg, prompts, 5)
+    assert toks.cpu().tolist() == want.tolist()
+    from repro_torch.models import prefill
+    got = prefill(model, cfg, {"tokens": prompts.to(cuda)})[0]
+    ref = prefill(model_cpu, cfg, {"tokens": prompts})[0]
+    assert float((got.cpu() - ref).abs().max()) <= 1e-4
