@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one card.
 
-Two paths, each through the entry points a user calls, each with the
+Three paths, each through the entry points a user calls, each with the
 launch counters zeroed just before it and read just after: the video path
-(below) and the serving phase (Falcon-Mamba-7B, further below).
+(below), the serving phase (Falcon-Mamba-7B) and the dense serving phase
+(StarCoder2-3B), further below.
 
 Drives the port's main path at the paper's 720p30 through the entry points
 a user calls: ``VideoStore.ingest_segment`` writes 4 segments of
@@ -58,7 +59,25 @@ decode steps against the full forward (the same bound), and K5 against its
 plain version at one layer's prefill shape (4, 2048, 8192, n 16), at n 8,
 and at S = 1 from a non-zero state (within 1e-5 of the largest value).
 
-Prints the queries' x-realtime, the serving phase's prefill time and
+The dense serving phase serves ``starcoder2-3b`` at its published width
+and depth (30 layers, d_model 3072, 24 heads over 2 KV heads, head_dim
+128, d_ff 12288, vocab 49152) with bf16 weights drawn from a seed on the
+card and a bf16 KV cache, with the same traffic and warm-up through
+``generate``.  K4 (flash_attention) must launch 30 times for the prefill
+and 30 for each serve step.  A profiled prefill and 4 profiled decode
+steps report the busy share.  Then, with f32 weights and a 128-token
+prompt, it holds 124-token prefill + 4 decode steps against the full
+forward and the kernel route against the same model with K4's plain
+version bound in its place (logits within 1e-3 of their largest
+magnitude, 8 greedy tokens equal), and K4 against its plain version at one
+layer's prefill shape (4, 2048, 24 over 2 heads, 128), at head_dim 64
+with 16 heads over 16, and in the decode form (one query row over a
+(4, 2080, 2, 128) cache at length 2049), within one bf16 ulp (2^-7) of
+the largest output.  K4 is timed beside
+``F.scaled_dot_product_attention`` as its yardstick (``library_ms``),
+which the port never calls.
+
+Prints the queries' x-realtime, each serving phase's prefill time and
 decode rate, a ``{"kernels": [...]}`` line, the card's name and power
 limit, and last ``{"ok": true, "device": {...}}``.  Exits
 non-zero without that last line when there is no CUDA card or a check
@@ -81,9 +100,11 @@ sys.path.insert(0, os.path.join(HERE, "src"))
 SEGMENTS = 4
 STREAMS = {"A": "jackson", "B": "dashcam"}
 ACCURACY = 0.8
-# NVIDIA H100 SXM data sheet: HBM3 bandwidth, fp32 without tensor cores
+# NVIDIA H100 SXM data sheet: HBM3 bandwidth, fp32 without tensor cores,
+# bf16 on the tensor cores (dense)
 PEAK_BYTES_S = 3.35e12
 PEAK_FP32_FLOP_S = 67e12
+PEAK_BF16_FLOP_S = 989e12
 # Hopper special-function units: 16 exp2 per SM per clock, 132 SMs
 SFU_PER_SM_CLOCK = 16
 SMS = 132
@@ -95,6 +116,13 @@ SERVE_SEED = 0
 HOLD_PROMPT, HOLD_DECODE, HOLD_NEW = 128, 4, 8
 LOGIT_TOL = 1e-3  # of the largest |logit|: f32 weights, sums reordered
 SCAN_TOL = 1e-5   # of the largest |value|: K5 vs its plain version
+# the dense serving phase: StarCoder2-3B at full width, bf16 weights and
+# KV cache, the same traffic
+DENSE_ARCH = "starcoder2-3b"
+DECODE_LEN = 2049  # K4's decode form is held at this cache length
+# of the largest |output|: K4 vs its plain version in bf16, where both sum
+# in f32 and the one final rounding may land one bf16 ulp apart
+ATTN_TOL = 2 ** -7
 
 
 def card_line() -> str:
@@ -301,37 +329,14 @@ def rel_err(torch, got, want) -> float:
         1.0, float(want.float().abs().max()))
 
 
-def serving_phase(torch, check, cfg, dev) -> dict:
-    """``cfg`` (Falcon-Mamba-7B) served on ``dev``, the kernel route held
-    against the plain scan and decode against forward, and K5 held and
-    timed against its plain version.  Returns K5's ``kernels`` row."""
-    import gc
-
+def timed_serve(torch, check, model, cfg, prompts, kernel: str):
+    """One untimed warm-up of ``generate``, then the timed and counted run
+    (counters zeroed just before it, read just after).  Checks that
+    ``kernel`` launched once per layer for the prefill and for each serve
+    step.  Returns (tokens, launches, prefill s, decode s)."""
     from repro_torch.kernels import build
-    from repro_torch.kernels.mamba_scan.mamba_scan import mamba_scan
-    from repro_torch.kernels.mamba_scan.ref import mamba_scan_ref
     from repro_torch.launch.serve import generate
-    from repro_torch.models import (decode_step, forward, init_params,
-                                    prefill)
-    from repro_torch.models import recurrent
 
-    print(f"serve: {cfg.name}, {cfg.n_layers} layers, d_model {cfg.d_model}, "
-          f"inner {cfg.ssm.expand * cfg.d_model}, state {cfg.ssm.state_dim}, "
-          f"vocab {cfg.vocab_size}, {cfg.param_count() / 1e9:.2f} B params",
-          flush=True)
-    t0 = time.perf_counter()
-    model = init_params(cfg, SERVE_SEED, torch.bfloat16, dev)
-    torch.cuda.synchronize()
-    weight_bytes = sum(p.numel() * p.element_size()
-                       for p in model.parameters())
-    print(f"serve: bf16 weights drawn on the card in "
-          f"{time.perf_counter() - t0:.1f} s, {weight_bytes / 1e9:.2f} GB",
-          flush=True)
-    gen = torch.Generator(device=dev).manual_seed(SERVE_SEED + 1)
-    prompts = torch.randint(0, cfg.vocab_size, (SERVE_BATCH, SERVE_PROMPT),
-                            generator=gen, device=dev)
-
-    # -- the timed serve, counted ---------------------------------------
     generate(model, cfg, prompts, SERVE_NEW)  # warm-up, not counted
     torch.cuda.reset_peak_memory_stats()
     build.LAUNCHES.reset()
@@ -339,27 +344,35 @@ def serving_phase(torch, check, cfg, dev) -> dict:
     torch.cuda.synchronize()
     launches = build.LAUNCHES.snapshot()
     steps = SERVE_NEW - 1
-    print(f"serve: prefill {SERVE_BATCH}x{SERVE_PROMPT} in "
+    print(f"serve {cfg.name}: prefill {SERVE_BATCH}x{SERVE_PROMPT} in "
           f"{t_prefill * 1e3:.1f} ms; {steps} serve steps in "
           f"{t_decode * 1e3:.1f} ms ({t_decode / steps * 1e3:.2f} ms a step, "
           f"{SERVE_BATCH * steps / t_decode:.1f} tok/s decode); peak "
           f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB; "
           f"launches {launches}", flush=True)
     want = cfg.n_layers * (1 + steps)
-    check(launches.get("mamba_scan", 0) == want,
-          f"serve: mamba_scan launched {launches.get('mamba_scan', 0)} "
+    check(launches.get(kernel, 0) == want,
+          f"serve {cfg.name}: {kernel} launched {launches.get(kernel, 0)} "
           f"times, {cfg.n_layers} per prefill and per serve step "
           f"({want} expected)")
     check(tuple(toks.shape) == (SERVE_BATCH, SERVE_NEW)
           and bool(((toks >= 0) & (toks < cfg.vocab_size)).all()),
-          f"serve: greedy tokens {tuple(toks.shape)} in [0, vocab)")
+          f"serve {cfg.name}: greedy tokens {tuple(toks.shape)} in [0, vocab)")
+    return toks, launches, t_prefill, t_decode
 
-    # where the device time goes: kernel time under the profiler, against
-    # the unprofiled wall time of the timed run above
+
+def profile_serve(torch, model, cfg, prompts, toks, t_prefill, t_decode):
+    """Where the device time goes: kernel time of one prefill and of 4
+    decode steps under the profiler, against the unprofiled wall time of
+    the timed run."""
+    from repro_torch.models import decode_step, prefill
+
+    steps = SERVE_NEW - 1
     cache = {}
 
     def run_prefill():
-        cache["c"] = prefill(model, cfg, {"tokens": prompts})[1]
+        cache["c"] = prefill(model, cfg, {"tokens": prompts},
+                             SERVE_PROMPT + SERVE_NEW, model.dtype)[1]
 
     def run_steps():
         tok = toks[:, -1]
@@ -374,20 +387,26 @@ def serving_phase(torch, check, cfg, dev) -> dict:
         busy, count, top = device_time(torch, fn)
         share = (f"{busy / wall_ms:.1%} of the timed run's {wall_ms:.1f} ms"
                  if busy else "not measured (no device time in the trace)")
-        print(f"serve profile, {what}: {count} kernels, {busy:.1f} ms on "
-              f"the card, {share}; top: " + "; ".join(
+        print(f"serve profile {cfg.name}, {what}: {count} kernels, "
+              f"{busy:.1f} ms on the card, {share}; top: " + "; ".join(
                   f"{name[:60]} {ms:.1f} ms x{n}" for name, ms, n in top),
               flush=True)
-    del model, cache
-    gc.collect()
-    torch.cuda.empty_cache()
 
-    # -- hold on the card: f32 weights, a 128-token prompt ----------------
-    model = init_params(cfg, SERVE_SEED, torch.float32, dev)
+
+def hold_serve(torch, check, model, cfg, prompts, module, name, plain):
+    """With f32 weights on a ``HOLD_PROMPT``-token prompt: prefill of all
+    but ``HOLD_DECODE`` tokens plus that many decode steps against the full
+    forward, then the kernel route against the same model with
+    ``module.name`` bound to the plain version ``plain``: forward logits
+    within ``LOGIT_TOL`` of the largest |logit|, greedy tokens equal."""
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import decode_step, forward, prefill
+
     hold = prompts[:, :HOLD_PROMPT]
     full = forward(model, cfg, {"tokens": hold})
     p = HOLD_PROMPT - HOLD_DECODE
-    logits, cache = prefill(model, cfg, {"tokens": hold[:, :p]})
+    logits, cache = prefill(model, cfg, {"tokens": hold[:, :p]}, HOLD_PROMPT,
+                            model.dtype)
     errs = [rel_err(torch, logits, full[:, :p])]
     for t in range(p, HOLD_PROMPT):
         step, cache = decode_step(model, cfg, {"tokens": hold[:, t:t + 1]},
@@ -396,26 +415,79 @@ def serving_phase(torch, check, cfg, dev) -> dict:
     check(bool(torch.isfinite(full).all())
           and tuple(full.shape) == (SERVE_BATCH, HOLD_PROMPT, cfg.vocab_size)
           and max(errs) <= LOGIT_TOL,
-          f"hold: prefill({p}) + {HOLD_DECODE} decode steps vs forward"
-          f"({HOLD_PROMPT}), f32, logits {tuple(full.shape)} finite, max "
-          f"|d| {max(errs):.3g} of the largest |logit| "
+          f"hold {cfg.name}: prefill({p}) + {HOLD_DECODE} decode steps vs "
+          f"forward({HOLD_PROMPT}), f32, logits {tuple(full.shape)} finite, "
+          f"max |d| {max(errs):.3g} of the largest |logit| "
           f"({float(full.abs().max()):.3g})")
     toks_k, _, _ = generate(model, cfg, hold, HOLD_NEW)
-    kernel_scan = recurrent.selective_scan
-    recurrent.selective_scan = mamba_scan_ref  # the plain scan, on the card
+    kernel = getattr(module, name)
+    setattr(module, name, plain)  # the plain version, on the card
     try:
         full_p = forward(model, cfg, {"tokens": hold})
         toks_p, _, _ = generate(model, cfg, hold, HOLD_NEW)
     finally:
-        recurrent.selective_scan = kernel_scan
+        setattr(module, name, kernel)
     err = rel_err(torch, full, full_p)
     check(err <= LOGIT_TOL and torch.equal(toks_k, toks_p),
-          f"hold: kernel route vs plain scan on the card, f32, forward "
-          f"logits max |d| {err:.3g} of the largest |logit|, "
+          f"hold {cfg.name}: kernel route vs plain version on the card, f32, "
+          f"forward logits max |d| {err:.3g} of the largest |logit|, "
           f"{HOLD_NEW} greedy tokens equal: {torch.equal(toks_k, toks_p)}")
-    del model, full, full_p, logits, cache
+
+
+def served_model(torch, cfg, dev):
+    """``cfg`` with bf16 weights drawn from ``SERVE_SEED`` on the card, and
+    ``SERVE_BATCH`` random prompts of ``SERVE_PROMPT`` tokens."""
+    from repro_torch.models import init_params
+
+    t0 = time.perf_counter()
+    model = init_params(cfg, SERVE_SEED, torch.bfloat16, dev)
+    torch.cuda.synchronize()
+    weight_bytes = sum(p.numel() * p.element_size()
+                       for p in model.parameters())
+    print(f"serve: bf16 weights drawn on the card in "
+          f"{time.perf_counter() - t0:.1f} s, {weight_bytes / 1e9:.2f} GB",
+          flush=True)
+    gen = torch.Generator(device=dev).manual_seed(SERVE_SEED + 1)
+    prompts = torch.randint(0, cfg.vocab_size, (SERVE_BATCH, SERVE_PROMPT),
+                            generator=gen, device=dev)
+    return model, prompts
+
+
+def free_card(torch) -> None:
+    import gc
+
     gc.collect()
     torch.cuda.empty_cache()
+
+
+def serving_phase(torch, check, cfg, dev) -> dict:
+    """``cfg`` (Falcon-Mamba-7B) served on ``dev``, the kernel route held
+    against the plain scan and decode against forward, and K5 held and
+    timed against its plain version.  Returns K5's ``kernels`` row."""
+    from repro_torch.kernels.mamba_scan.mamba_scan import mamba_scan
+    from repro_torch.kernels.mamba_scan.ref import mamba_scan_ref
+    from repro_torch.models import init_params
+    from repro_torch.models import recurrent
+
+    print(f"serve: {cfg.name}, {cfg.n_layers} layers, d_model {cfg.d_model}, "
+          f"inner {cfg.ssm.expand * cfg.d_model}, state {cfg.ssm.state_dim}, "
+          f"vocab {cfg.vocab_size}, {cfg.param_count() / 1e9:.2f} B params",
+          flush=True)
+    model, prompts = served_model(torch, cfg, dev)
+
+    # -- the timed serve, counted, and its profile ----------------------
+    toks, launches, t_prefill, t_decode = timed_serve(
+        torch, check, model, cfg, prompts, "mamba_scan")
+    profile_serve(torch, model, cfg, prompts, toks, t_prefill, t_decode)
+    del model
+    free_card(torch)
+
+    # -- hold on the card: f32 weights, a 128-token prompt ----------------
+    model = init_params(cfg, SERVE_SEED, torch.float32, dev)
+    hold_serve(torch, check, model, cfg, prompts, recurrent,
+               "selective_scan", mamba_scan_ref)
+    del model
+    free_card(torch)
 
     # -- K5 against its plain version, at one layer's shapes --------------
     inner, n = cfg.ssm.expand * cfg.d_model, cfg.ssm.state_dim
@@ -463,6 +535,104 @@ def serving_phase(torch, check, cfg, dev) -> dict:
             "bound_by": "bytes" if t_bytes >= max(t_ops, t_sfu)
             else "operations",
             "library_ms": None}
+
+
+def dense_serving_phase(torch, check, cfg, dev) -> dict:
+    """``cfg`` (StarCoder2-3B) served on ``dev`` with a bf16 KV cache, the
+    kernel route held against K4's plain version and decode against
+    forward, and K4 held and timed against its plain version and against
+    ``F.scaled_dot_product_attention``.  Returns K4's ``kernels`` row."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.attention.attention import flash_attention
+    from repro_torch.kernels.attention.ref import attention_ref
+    from repro_torch.models import attention, init_params
+
+    hd = cfg.resolved_head_dim
+    print(f"serve: {cfg.name}, {cfg.n_layers} layers, d_model {cfg.d_model}, "
+          f"{cfg.n_heads} heads over {cfg.n_kv_heads} KV heads of {hd}, "
+          f"d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, "
+          f"{cfg.param_count() / 1e9:.2f} B params", flush=True)
+    model, prompts = served_model(torch, cfg, dev)
+
+    # -- the timed serve, counted, and its profile ----------------------
+    toks, launches, t_prefill, t_decode = timed_serve(
+        torch, check, model, cfg, prompts, "flash_attention")
+    profile_serve(torch, model, cfg, prompts, toks, t_prefill, t_decode)
+    del model
+    free_card(torch)
+
+    # -- hold on the card: f32 weights, a 128-token prompt ----------------
+    model = init_params(cfg, SERVE_SEED, torch.float32, dev)
+    hold_serve(torch, check, model, cfg, prompts, attention, "gqa_attention",
+               attention_ref)
+    del model
+    free_card(torch)
+
+    # -- K4 against its plain version, at one layer's shapes --------------
+    def qkv(bsz, sq, sk, h, kvh, d, seed):
+        g = torch.Generator(device=dev).manual_seed(seed)
+        return [torch.randn(shape, generator=g, device=dev,
+                            dtype=torch.float32).to(torch.bfloat16)
+                for shape in ((bsz, sq, h, d), (bsz, sk, kvh, d),
+                              (bsz, sk, kvh, d))]
+
+    b, s, h, kvh = SERVE_BATCH, SERVE_PROMPT, cfg.n_heads, cfg.n_kv_heads
+    cache_len = SERVE_PROMPT + SERVE_NEW
+    cases = (("prefill", qkv(b, s, s, h, kvh, hd, 0), 0, s),
+             ("head_dim 64, 16 heads over 16", qkv(b, s, s, 16, 16, 64, 1),
+              0, s),
+             (f"decode over a cache at length {DECODE_LEN}",
+              qkv(b, 1, cache_len, h, kvh, hd, 2), DECODE_LEN - 1,
+              DECODE_LEN))
+    errs = {}
+    for name, (q, k, v), q_offset, k_len in cases:
+        got = flash_attention(q, k, v, q_offset, k_len)
+        want = attention_ref(q, k, v, q_offset, k_len)
+        errs[name] = float((got.float() - want.float()).abs().max())
+        check(rel_err(torch, got, want) <= ATTN_TOL,
+              f"K4 flash_attention vs plain, {name}: q {tuple(q.shape)}, "
+              f"k/v {tuple(k.shape)} bf16, max |d| {errs[name]:.3g}")
+    q, k, v = cases[0][1]
+    dq, dk, dv = cases[2][1]
+    decode_ms = time_ms(torch, lambda: flash_attention(
+        dq, dk, dv, DECODE_LEN - 1, DECODE_LEN), 50)
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+
+    def library():
+        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                              enable_gqa=True)
+
+    lib_err = float((library().transpose(1, 2).float()
+                     - attention_ref(q, k, v).float()).abs().max())
+    pairs = b * h * s * (s + 1) // 2  # kept (q, k) pairs, causal
+    flops = 4 * hd * pairs
+    nbytes = 2 * (q.numel() + k.numel()) * q.element_size()  # q, o; k, v
+    clock = max_sm_clock_hz()
+    t_ops, t_bytes = flops / PEAK_BF16_FLOP_S, nbytes / PEAK_BYTES_S
+    t_sfu = pairs / (SFU_PER_SM_CLOCK * SMS * clock)
+    decode_bytes = 2 * b * DECODE_LEN * kvh * hd * dk.element_size()
+    print(f"K4 bound at q {tuple(q.shape)}, k/v {tuple(k.shape)} bf16, "
+          f"causal: {pairs:.4g} (q, k) pairs x 4·{hd} = {flops / 1e9:.1f} "
+          f"GFLOP -> {t_ops * 1e3:.4f} ms at 989 TFLOP/s bf16 "
+          f"({flops / PEAK_FP32_FLOP_S * 1e3:.3f} ms at 67 TFLOP/s fp32); "
+          f"{nbytes / 1e6:.1f} MB -> {t_bytes * 1e3:.4f} ms; {pairs:.4g} exp "
+          f"on the SFUs at {clock / 1e9:.3f} GHz -> {t_sfu * 1e3:.4f} ms.  "
+          f"Decode form: {decode_ms:.4f} ms, reads {decode_bytes / 1e6:.2f} "
+          f"MB of cache, bound {decode_bytes / PEAK_BYTES_S * 1e3:.4f} ms.  "
+          f"SDPA vs plain: max |d| {lib_err:.3g}", flush=True)
+    bound = max(t_ops, t_bytes, t_sfu)
+    return {"name": "flash_attention", "route": "cuda",
+            "source": "src/repro_torch/csrc/attention.cu",
+            "replaces": "src/repro/kernels/attention/attention.py:80",
+            "launches": launches.get("flash_attention", 0),
+            "max_abs_err": max(errs.values()),
+            "ms": time_ms(torch, lambda: flash_attention(q, k, v), 20),
+            "plain_ms": time_ms(torch, lambda: attention_ref(q, k, v), 3),
+            "bound_ms": bound * 1e3,
+            "bound_by": "bytes" if t_bytes >= max(t_ops, t_sfu)
+            else "operations",
+            "library_ms": time_ms(torch, library, 20)}
 
 
 def main() -> int:
@@ -710,12 +880,17 @@ def main() -> int:
         shutil.rmtree(work, ignore_errors=True)
     print(f"video path: {time.perf_counter() - t_start:.1f} s", flush=True)
 
-    # -- the serving phase: Falcon-Mamba-7B, counters zeroed inside ---------
+    # -- the serving phases, counters zeroed inside each --------------------
+    dev = torch.device("cuda")
     t0 = time.perf_counter()
-    rows.append(serving_phase(torch, check, get_config(SERVE_ARCH),
-                              torch.device("cuda")))
-    print(f"serving phase: {time.perf_counter() - t0:.1f} s; whole run "
-          f"{time.perf_counter() - t_start:.1f} s", flush=True)
+    rows.append(serving_phase(torch, check, get_config(SERVE_ARCH), dev))
+    print(f"serving phase: {time.perf_counter() - t0:.1f} s", flush=True)
+    free_card(torch)
+    t0 = time.perf_counter()
+    rows.append(dense_serving_phase(torch, check, get_config(DENSE_ARCH),
+                                    dev))
+    print(f"dense serving phase: {time.perf_counter() - t0:.1f} s; whole "
+          f"run {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
 
     if failures:

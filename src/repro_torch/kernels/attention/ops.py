@@ -1,0 +1,22 @@
+"""Dispatch for K4 on the tensor's device: the CUDA kernel for a CUDA
+tensor, the plain version for a CPU tensor, nothing else.  The model's
+attention (``models/attention.py``) calls this once per layer: over the
+prompt in prefill and over the KV cache in every decode step."""
+
+import torch
+
+from .attention import flash_attention
+from .ref import attention_ref
+
+
+def gqa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  q_offset: int = 0, k_len: int | None = None
+                  ) -> torch.Tensor:
+    """q (B, Sq, H, hd); k, v (B, Sk, KV, hd).  Returns (B, Sq, H, hd):
+    causal attention of query rows at positions ``q_offset + i`` over the
+    first ``k_len`` keys (default all)."""
+    if q.is_cuda:
+        return flash_attention(q, k, v, q_offset, k_len)
+    if q.device.type == "cpu":
+        return attention_ref(q, k, v, q_offset, k_len)
+    raise ValueError(f"no attention path for device {q.device}")

@@ -1,15 +1,20 @@
 """Serving launcher of the port: ``python -m repro_torch.launch.serve
 --arch <id>``, the twin of ``src/repro/launch/serve.py``.
 
-Batched greedy decoding: one prefill over random prompts, then
-``new_tokens - 1`` serve steps, each a ``decode_step`` from the recurrent
-cache and an argmax.  Prints the prefill time and the decode rate, as the
-reference does.  Runs on the card unless ``--device cpu``; serves the ssm
-family (Falcon-Mamba) only so far and refuses any other arch.
+Batched greedy decoding: one prefill over random prompts into a cache of
+``prompt_len + new_tokens`` positions, then ``new_tokens - 1`` serve
+steps, each a ``decode_step`` from the cache (recurrent states or KV) and
+an argmax.  Prints the prefill time and the decode rate, as the reference
+does.  Runs on the card unless ``--device cpu``; serves the ssm family
+(Falcon-Mamba) and the dense family (StarCoder2, SmolLM, Qwen1.5) and
+exits with a message for any other arch.  The KV cache takes the weights'
+dtype (``--dtype``).  ``--reduced`` (the default) keeps head_dim 64, a
+head dim K4 is built for, so a reduced dense model runs on the card too.
 
-    python -m repro_torch.launch.serve --arch falcon-mamba-7b --full \\
+    python -m repro_torch.launch.serve --arch starcoder2-3b --full \\
         --dtype bfloat16 --batch 4 --prompt-len 2048 --new-tokens 32
-    python -m repro_torch.launch.serve --arch falcon-mamba-7b --device cpu
+    python -m repro_torch.launch.serve --arch starcoder2-3b --device cpu \\
+        --reduced
 """
 
 from __future__ import annotations
@@ -22,6 +27,7 @@ import torch
 from ..configs import get_config
 from ..device import resolve_device
 from ..models import init_params, prefill
+from ..models.transformer import require_served
 from ..train import make_serve_step
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -35,13 +41,16 @@ def _sync(device: torch.device) -> None:
 def generate(model, cfg, prompts: torch.Tensor, new_tokens: int):
     """Greedy decoding of ``new_tokens`` tokens per prompt row: the first
     from the prefill's last logits, the rest from ``new_tokens - 1`` serve
-    steps.  Returns (tokens (B, new_tokens), prefill seconds, decode
-    seconds), timed on the host clock around work that ends in a device
-    synchronise."""
+    steps, over a cache of ``prompt_len + new_tokens`` positions in the
+    model's dtype.  Returns (tokens (B, new_tokens), prefill seconds,
+    decode seconds), timed on the host clock around work that ends in a
+    device synchronise."""
     dev = prompts.device
+    max_len = prompts.shape[1] + new_tokens
     _sync(dev)
     t0 = time.perf_counter()
-    logits, cache = prefill(model, cfg, {"tokens": prompts})
+    logits, cache = prefill(model, cfg, {"tokens": prompts}, max_len,
+                            model.dtype)
     tok = torch.argmax(logits[:, -1], dim=-1)
     _sync(dev)
     t_prefill = time.perf_counter() - t0
@@ -70,11 +79,12 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     cfg = get_config(args.arch)
-    if cfg.family != "ssm":
-        raise SystemExit(f"{args.arch}: the port serves the ssm family only "
-                         f"so far (ROADMAP §1), not {cfg.family!r}")
+    try:
+        require_served(cfg)
+    except NotImplementedError as e:
+        raise SystemExit(f"{args.arch}: not served by the port yet: {e}")
     if args.reduced:
-        cfg = cfg.reduced(n_layers=4, d_model=128, n_heads=4, d_ff=512,
+        cfg = cfg.reduced(n_layers=4, d_model=256, n_heads=4, d_ff=512,
                           vocab=1024)
     dev = resolve_device(args.device)
     model = init_params(cfg, 0, DTYPES[args.dtype], dev)

@@ -1,0 +1,99 @@
+"""Grouped-query attention of the port (``src/repro/models/attention.py``):
+the dense family's causal self-attention, over the prompt and over a KV
+cache.
+
+The projections are plain PyTorch matrix products, as they are XLA's in
+the reference; both attention calls go through K4
+(``kernels/attention/ops.py``): the CUDA kernel on the card, its plain
+version on the CPU.  The reference computes attention in blocked jnp and
+its decode form as one softmax; the port's kernel computes both, the
+decode form with the query at position ``cache_len - 1``.  The reference
+scales q and casts p in the input dtype; the port follows the TPU kernel
+(q scaled and p kept in float32), so the two agree to rounding in float32
+and differ by bf16 rounding in bfloat16.  Sliding windows and logit
+soft-caps wait for the gemma2 slice, the bidirectional mask for the audio
+family (ROADMAP §1).
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from ..kernels.attention.ops import gqa_attention
+from .config import ArchConfig
+from .layers import apply_rope, param, truncated_normal
+
+
+class Attention(nn.Module):
+    """One layer's attention with the reference's leaves and layouts:
+    ``wq`` (d, H, hd), ``wk``/``wv`` (d, KV, hd), ``wo`` (H, hd, d), and
+    ``bq`` (H, hd), ``bk``/``bv`` (KV, hd) when ``cfg.qkv_bias``.  Built
+    empty: ``init_attention`` draws the weights,
+    ``convert.params_from_numpy`` copies them in."""
+
+    def __init__(self, cfg: ArchConfig, dtype, device):
+        super().__init__()
+        d, hd = cfg.d_model, cfg.resolved_head_dim
+        h, kv = cfg.n_heads, cfg.n_kv_heads
+        self.n_heads, self.n_kv_heads, self.head_dim = h, kv, hd
+        self.wq = param((d, h, hd), dtype, device)
+        self.wk = param((d, kv, hd), dtype, device)
+        self.wv = param((d, kv, hd), dtype, device)
+        self.wo = param((h, hd, d), dtype, device)
+        self.qkv_bias = cfg.qkv_bias
+        if cfg.qkv_bias:
+            self.bq = param((h, hd), dtype, device)
+            self.bk = param((kv, hd), dtype, device)
+            self.bv = param((kv, hd), dtype, device)
+
+    def qkv_project(self, x: torch.Tensor, rope) -> tuple:
+        """x (B, S, d) -> q (B, S, H, hd), k, v (B, S, KV, hd), q and k
+        rotated by ``rope`` (a ``layers.rope_table``)."""
+        b, s, d = x.shape
+        q = (x @ self.wq.reshape(d, -1)).view(b, s, self.n_heads, -1)
+        k = (x @ self.wk.reshape(d, -1)).view(b, s, self.n_kv_heads, -1)
+        v = (x @ self.wv.reshape(d, -1)).view(b, s, self.n_kv_heads, -1)
+        if self.qkv_bias:
+            q, k, v = q + self.bq, k + self.bk, v + self.bv
+        return apply_rope(q, rope), apply_rope(k, rope), v
+
+    @staticmethod
+    def attention(q: torch.Tensor, k: torch.Tensor,
+                  v: torch.Tensor) -> torch.Tensor:
+        """Causal attention of the sequence over itself (train, prefill):
+        q (B, S, H, hd), k, v (B, S, KV, hd) -> (B, S, H, hd)."""
+        return gqa_attention(q, k, v)
+
+    @staticmethod
+    def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
+                         v_cache: torch.Tensor,
+                         cache_len: int) -> torch.Tensor:
+        """One token per row against the cache: q (B, 1, H, hd), caches
+        (B, S_max, KV, hd) whose first ``cache_len`` positions are valid,
+        the new token's k/v already written at ``cache_len - 1``."""
+        return gqa_attention(q, k_cache, v_cache, q_offset=cache_len - 1,
+                             k_len=cache_len)
+
+    def out_project(self, attn_out: torch.Tensor) -> torch.Tensor:
+        """(B, S, H, hd) -> (B, S, d)."""
+        b, s = attn_out.shape[:2]
+        return attn_out.reshape(b, s, -1) @ self.wo.reshape(
+            -1, self.wo.shape[-1])
+
+
+def init_attention(attn: Attention, generator: torch.Generator) -> Attention:
+    """Draw ``attn``'s weights in place with the reference's scales:
+    ``wq``/``wk``/``wv`` at d^-0.5, ``wo`` at (H·hd)^-0.5, truncated at 2
+    sigma; the biases zero."""
+    d = attn.wq.shape[0]
+    with torch.no_grad():
+        for p, scale in ((attn.wq, d ** -0.5), (attn.wk, d ** -0.5),
+                         (attn.wv, d ** -0.5),
+                         (attn.wo, (attn.n_heads * attn.head_dim) ** -0.5)):
+            p.copy_(truncated_normal(p.shape, scale, p.dtype, generator,
+                                     p.device))
+        if attn.qkv_bias:
+            for p in (attn.bq, attn.bk, attn.bv):
+                p.zero_()
+    return attn

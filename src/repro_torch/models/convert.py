@@ -1,14 +1,18 @@
 """Weights carried across from the reference: a ``repro.models``
-parameter tree, as numpy arrays, into the port's ``MambaLM``.
+parameter tree, as numpy arrays, into the port's ``MambaLM`` or
+``DenseLM``.
 
-The tree is what ``repro.models.init_params`` returns for an ssm-family
-config, converted leaf by leaf with ``numpy.asarray``: ``embed``,
-``ln_f``, ``lm_head`` and ``blocks``, whose leaves carry the layers on
-axis 0 (``blocks/ln1`` (L, d), ``blocks/ssm/in_proj`` (L, d, 2·inner),
-...).  ``blocks/ln2`` is dropped: the reference initialises it for every
-family but the ssm family has no FFN and never reads it.  Layouts are the
-same on both sides, so each leaf is copied as it is; bfloat16 leaves
-(``ml_dtypes``) are reinterpreted bit for bit.
+The tree is what ``repro.models.init_params`` returns, converted leaf by
+leaf with ``numpy.asarray``: ``embed``, ``ln_f``, ``lm_head`` (untied
+only) and ``blocks``, whose leaves carry the layers on axis 0.
+* ssm: ``blocks/ln1`` (L, d) and ``blocks/ssm/{in_proj, ...}``.
+  ``blocks/ln2`` is dropped: the reference initialises it for every family
+  but the ssm family has no FFN and never reads it.
+* dense: ``blocks/ln1``, ``blocks/ln2`` (L, d),
+  ``blocks/attn/{wq, wk, wv, wo}`` and, with qkv bias, ``{bq, bk, bv}``,
+  and ``blocks/mlp/{wi, wo}`` plus ``wg`` for the gated MLP.
+Layouts are the same on both sides, so each leaf is copied as it is;
+bfloat16 leaves (``ml_dtypes``) are reinterpreted bit for bit.
 """
 
 from __future__ import annotations
@@ -18,10 +22,12 @@ import torch
 
 from ..device import resolve_device
 from .config import ArchConfig
-from .transformer import MambaLM
+from .transformer import DenseLM, MambaLM
 
 _SSM_LEAVES = ("in_proj", "conv", "x_proj", "dt_proj", "dt_bias", "a_log",
                "d", "out_proj")
+_ATTN_LEAVES = ("wq", "wk", "wv", "wo")
+_BIAS_LEAVES = ("bq", "bk", "bv")
 
 
 def _tensor(arr) -> torch.Tensor:
@@ -40,18 +46,29 @@ def _copy(dst: torch.nn.Parameter, src, name: str) -> None:
         dst.copy_(t)
 
 
-def params_from_numpy(tree: dict, cfg: ArchConfig, device=None) -> MambaLM:
-    """A ``MambaLM`` on ``device`` (the card unless the caller asks for the
-    CPU) holding the reference tree's weights, in the tree's projection
-    dtype."""
-    model = MambaLM(cfg, _tensor(tree["embed"]).dtype,
-                    resolve_device(device))
-    for name in ("embed", "ln_f", "lm_head"):
+def params_from_numpy(tree: dict, cfg: ArchConfig, device=None):
+    """A ``MambaLM`` (ssm) or ``DenseLM`` (dense) on ``device`` (the card
+    unless the caller asks for the CPU) holding the reference tree's
+    weights, in the tree's projection dtype."""
+    dtype = _tensor(tree["embed"]).dtype
+    dev = resolve_device(device)
+    model = (MambaLM if cfg.family == "ssm" else DenseLM)(cfg, dtype, dev)
+    heads = ("embed", "ln_f") + (() if cfg.tie_embeddings else ("lm_head",))
+    for name in heads:
         _copy(getattr(model, name), tree[name], name)
     blocks = tree["blocks"]
     for i, block in enumerate(model.blocks):
         _copy(block.ln1, blocks["ln1"][i], f"blocks/ln1[{i}]")
-        for name in _SSM_LEAVES:
-            _copy(getattr(block.ssm, name), blocks["ssm"][name][i],
-                  f"blocks/ssm/{name}[{i}]")
+        if cfg.family == "ssm":
+            for name in _SSM_LEAVES:
+                _copy(getattr(block.ssm, name), blocks["ssm"][name][i],
+                      f"blocks/ssm/{name}[{i}]")
+            continue
+        _copy(block.ln2, blocks["ln2"][i], f"blocks/ln2[{i}]")
+        for name in _ATTN_LEAVES + (_BIAS_LEAVES if cfg.qkv_bias else ()):
+            _copy(getattr(block.attn, name), blocks["attn"][name][i],
+                  f"blocks/attn/{name}[{i}]")
+        for name in ("wi", "wo") + (("wg",) if cfg.act == "silu" else ()):
+            _copy(getattr(block.mlp, name), blocks["mlp"][name][i],
+                  f"blocks/mlp/{name}[{i}]")
     return model

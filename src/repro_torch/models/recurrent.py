@@ -19,7 +19,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..kernels.mamba_scan.ops import selective_scan
-from .layers import truncated_normal
+from .layers import param, truncated_normal
 
 
 def _causal_conv(x: torch.Tensor, w: torch.Tensor, state=None):
@@ -37,11 +37,6 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor, state=None):
     return y, new_state
 
 
-def _param(shape, dtype, device) -> nn.Parameter:
-    return nn.Parameter(torch.empty(shape, dtype=dtype, device=device),
-                        requires_grad=False)
-
-
 class MambaMixer(nn.Module):
     """One Mamba-1 block's sequence mixer, with the reference's parameter
     names and layouts (``x @ in_proj``, conv taps (cw, inner), ...).
@@ -57,14 +52,14 @@ class MambaMixer(nn.Module):
         self.state_dim = ssm.state_dim
         self.dt_rank = ssm.dt_rank or -(-d // 16)
         inner, n, r = self.inner, self.state_dim, self.dt_rank
-        self.in_proj = _param((d, 2 * inner), dtype, device)
-        self.conv = _param((ssm.conv_width, inner), dtype, device)
-        self.x_proj = _param((inner, r + 2 * n), dtype, device)
-        self.dt_proj = _param((r, inner), dtype, device)
-        self.dt_bias = _param((inner,), torch.float32, device)
-        self.a_log = _param((inner, n), torch.float32, device)
-        self.d = _param((inner,), torch.float32, device)
-        self.out_proj = _param((inner, d), dtype, device)
+        self.in_proj = param((d, 2 * inner), dtype, device)
+        self.conv = param((ssm.conv_width, inner), dtype, device)
+        self.x_proj = param((inner, r + 2 * n), dtype, device)
+        self.dt_proj = param((r, inner), dtype, device)
+        self.dt_bias = param((inner,), torch.float32, device)
+        self.a_log = param((inner, n), torch.float32, device)
+        self.d = param((inner,), torch.float32, device)
+        self.out_proj = param((inner, d), dtype, device)
 
     def forward(self, x: torch.Tensor, state: dict | None = None):
         """x: (B, S, d).  ``state``: None (a zero state) or dict(conv, h)

@@ -1,15 +1,19 @@
-"""The port's language model (``src/repro/models/transformer.py``), ssm
-family: ``MambaLM``, ``init_params`` and ``forward``.
+"""The port's language model (``src/repro/models/transformer.py``), ssm and
+dense families: ``MambaLM``, ``DenseLM``, ``init_params`` and
+``forward``.
 
     model  = init_params(cfg, seed, dtype, device)
     logits = forward(model, cfg, batch)                 # train / no-cache
 
 The reference stacks its layers on a leading axis for ``lax.scan``; the
-port keeps one ``MambaBlock`` per layer in a ``ModuleList``.  A block is
+port keeps one block per layer in a ``ModuleList``.  An ssm block is
 ``x + MambaMixer(rms_norm(x, ln1))``: the ssm family has no FFN, so the
 reference's ``ln2``, which it initialises and never reads, has no
-counterpart here.  The other families wait for the slices that bring
-their kernels (ROADMAP §1).
+counterpart there.  A dense block is the reference's ``_attn_block``
+without post-norms and ``_ffn`` without MoE: ``x + attn(rms_norm(x,
+ln1))``, then ``x + mlp(rms_norm(x, ln2))``.  The other families, and the
+dense configs with gemma2's features, wait for the slices that bring them
+(ROADMAP §1).
 """
 
 from __future__ import annotations
@@ -18,31 +22,51 @@ import torch
 from torch import nn
 
 from ..device import resolve_device
+from .attention import Attention, init_attention
 from .config import ArchConfig
-from .layers import rms_norm, softcap, truncated_normal
+from .layers import (MLP, init_mlp, param, rms_norm, rope_table, softcap,
+                     truncated_normal)
 from .recurrent import MambaMixer, init_mamba
 
 #: the slice that will bring each family not ported yet (ROADMAP §1)
 _WAITING = {
-    "dense": "the dense / gemma2 serving slice (K4 flash_attention)",
-    "vlm": "the dense / gemma2 serving slice (K4 flash_attention)",
-    "audio": "the dense / gemma2 serving slice (K4 flash_attention)",
-    "moe": "the rest of the LM scaffold, after the dense serving slice "
-           "(K4 flash_attention)",
-    "hybrid": "the recurrentgemma serving slice (K4 and K6 rglru_scan)",
+    "vlm": "the vlm family's slice (M-RoPE), with the rest of the LM "
+           "scaffold",
+    "audio": "the audio family's slice (K4's non-causal form, the frames "
+             "frontend), with the rest of the LM scaffold",
+    "moe": "the rest of the LM scaffold (MoE layers)",
+    "hybrid": "the recurrentgemma serving slice L3 (K6 rglru_scan, with "
+              "K4's window)",
 }
+_GEMMA2 = ("the gemma2 serving slice L2g (K4's window and soft-cap, head_dim "
+           "256, post-norms, GeGLU)")
 
 
-def _require_ssm(cfg: ArchConfig) -> None:
-    if cfg.family != "ssm":
+def require_served(cfg: ArchConfig) -> None:
+    """Raise ``NotImplementedError`` naming the slice that brings ``cfg``
+    unless the port serves it: the ssm family, and the dense family
+    without gemma2's features."""
+    if cfg.family not in ("ssm", "dense"):
         raise NotImplementedError(
-            f"{cfg.name}: the port has the ssm family only; the "
+            f"{cfg.name}: the port has the ssm and dense families only; the "
             f"{cfg.family!r} family waits for "
             f"{_WAITING.get(cfg.family, 'a later slice')}")
-    if cfg.tie_embeddings or cfg.frontend != "tokens":
+    if cfg.frontend != "tokens" or not cfg.causal:
         raise NotImplementedError(
-            f"{cfg.name}: the ssm path has untied embeddings and a token "
-            f"frontend only")
+            f"{cfg.name}: the port serves causal token models only")
+    if cfg.family == "ssm" and cfg.tie_embeddings:
+        raise NotImplementedError(
+            f"{cfg.name}: the ssm path has untied embeddings only")
+    if cfg.family == "dense" and (
+            cfg.local_window or cfg.local_global_alternate
+            or cfg.logit_softcap or cfg.final_softcap or cfg.post_norm
+            or cfg.act not in ("silu", "gelu")):
+        raise NotImplementedError(f"{cfg.name}: waits for {_GEMMA2}")
+
+
+def _norm(d: int, device) -> nn.Parameter:
+    return nn.Parameter(torch.zeros(d, dtype=torch.float32, device=device),
+                        requires_grad=False)
 
 
 class MambaBlock(nn.Module):
@@ -52,9 +76,7 @@ class MambaBlock(nn.Module):
     def __init__(self, cfg: ArchConfig, dtype, device):
         super().__init__()
         self.eps = cfg.norm_eps
-        self.ln1 = nn.Parameter(torch.zeros(cfg.d_model, dtype=torch.float32,
-                                            device=device),
-                                requires_grad=False)
+        self.ln1 = _norm(cfg.d_model, device)
         self.ssm = MambaMixer(cfg, dtype, device)
 
     def forward(self, x: torch.Tensor, state: dict | None = None):
@@ -70,19 +92,15 @@ class MambaLM(nn.Module):
 
     def __init__(self, cfg: ArchConfig, dtype=torch.float32, device=None):
         super().__init__()
-        _require_ssm(cfg)
+        require_served(cfg)
+        if cfg.family != "ssm":
+            raise ValueError(f"{cfg.name}: MambaLM takes the ssm family")
         device = resolve_device(device)
         self.cfg = cfg
         d, v = cfg.d_model, cfg.vocab_size
-        self.embed = nn.Parameter(torch.empty((v, d), dtype=dtype,
-                                              device=device),
-                                  requires_grad=False)
-        self.ln_f = nn.Parameter(torch.zeros(d, dtype=torch.float32,
-                                             device=device),
-                                 requires_grad=False)
-        self.lm_head = nn.Parameter(torch.empty((d, v), dtype=dtype,
-                                                device=device),
-                                    requires_grad=False)
+        self.embed = param((v, d), dtype, device)
+        self.ln_f = _norm(d, device)
+        self.lm_head = param((d, v), dtype, device)
         self.blocks = nn.ModuleList(MambaBlock(cfg, dtype, device)
                                     for _ in range(cfg.n_layers))
 
@@ -102,28 +120,150 @@ class MambaLM(nn.Module):
         return softcap(x @ self.lm_head, self.cfg.final_softcap), new_states
 
 
+class DenseBlock(nn.Module):
+    """``x + attn(rms_norm(x, ln1))``, then ``x + mlp(rms_norm(x, ln2))``.
+    ``forward`` runs the sequence over itself and also returns its roped
+    k and v (for the prefill's cache); ``decode`` runs one token per row
+    over the cache, writing its k/v into it first."""
+
+    def __init__(self, cfg: ArchConfig, dtype, device):
+        super().__init__()
+        self.eps = cfg.norm_eps
+        self.ln1 = _norm(cfg.d_model, device)
+        self.ln2 = _norm(cfg.d_model, device)
+        self.attn = Attention(cfg, dtype, device)
+        self.mlp = MLP(cfg.d_model, cfg.d_ff, cfg.act, dtype, device)
+
+    def _ffn(self, x: torch.Tensor) -> torch.Tensor:
+        return x + self.mlp(rms_norm(x, self.ln2, self.eps))
+
+    def forward(self, x: torch.Tensor, rope):
+        q, k, v = self.attn.qkv_project(rms_norm(x, self.ln1, self.eps), rope)
+        x = x + self.attn.out_project(self.attn.attention(q, k, v))
+        return self._ffn(x), k, v
+
+    def decode(self, x: torch.Tensor, rope, k_cache: torch.Tensor,
+               v_cache: torch.Tensor, pos: int) -> torch.Tensor:
+        q, k, v = self.attn.qkv_project(rms_norm(x, self.ln1, self.eps), rope)
+        write_kv(k_cache, v_cache, k, v, pos)
+        o = self.attn.decode_attention(q, k_cache, v_cache, pos + 1)
+        return self._ffn(x + self.attn.out_project(o))
+
+
+def write_kv(k_cache: torch.Tensor, v_cache: torch.Tensor, k: torch.Tensor,
+             v: torch.Tensor, start: int) -> None:
+    """Write k, v (B, S, KV, hd) into the caches (B, S_max, KV, hd) at
+    positions [start, start + S), cast to the cache dtype, in place (the
+    reference's ``_write_kv`` returns new arrays)."""
+    s = k.shape[1]
+    if start + s > k_cache.shape[1]:
+        raise ValueError(f"KV cache of {k_cache.shape[1]} positions is full "
+                         f"(writing [{start}, {start + s}))")
+    k_cache[:, start:start + s] = k
+    v_cache[:, start:start + s] = v
+
+
+class DenseLM(nn.Module):
+    """Embedding, ``n_layers`` dense blocks, final norm ``ln_f`` and the
+    head: ``lm_head`` (d, vocab), or with tied embeddings ``embed``
+    transposed, the input then scaled by sqrt(d) in the embedding's dtype
+    as the reference scales it.  Reference layouts, on ``device`` (the
+    card unless the caller asks for the CPU).  Built empty;
+    ``init_params`` or ``convert.params_from_numpy`` fill it."""
+
+    def __init__(self, cfg: ArchConfig, dtype=torch.float32, device=None):
+        super().__init__()
+        require_served(cfg)
+        if cfg.family != "dense":
+            raise ValueError(f"{cfg.name}: DenseLM takes the dense family")
+        device = resolve_device(device)
+        self.cfg = cfg
+        d, v = cfg.d_model, cfg.vocab_size
+        self.embed = param((v, d), dtype, device)
+        self.ln_f = _norm(d, device)
+        if not cfg.tie_embeddings:
+            self.lm_head = param((d, v), dtype, device)
+        self.blocks = nn.ModuleList(DenseBlock(cfg, dtype, device)
+                                    for _ in range(cfg.n_layers))
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.embed.dtype
+
+    def _embed(self, tokens: torch.Tensor) -> torch.Tensor:
+        x = self.embed[tokens]
+        if self.cfg.tie_embeddings:
+            x = x * torch.tensor(self.cfg.d_model ** 0.5, dtype=x.dtype,
+                                 device=x.device)
+        return x
+
+    def _rope_fn(self, tokens: torch.Tensor, start: int):
+        """RoPE table of positions ``start + [0, S)`` for every row (plain
+        RoPE; M-RoPE waits for the vlm family)."""
+        b, s = tokens.shape
+        pos = torch.arange(start, start + s, device=tokens.device)
+        return rope_table(pos.expand(b, s), self.cfg.resolved_head_dim,
+                          self.cfg.rope_theta)
+
+    def _logits(self, x: torch.Tensor) -> torch.Tensor:
+        x = rms_norm(x, self.ln_f, self.cfg.norm_eps)
+        head = self.embed.T if self.cfg.tie_embeddings else self.lm_head
+        return x @ head
+
+    def run(self, tokens: torch.Tensor, kv: tuple | None = None
+            ) -> torch.Tensor:
+        """tokens (B, S) at positions [0, S) -> logits (B, S, vocab).  With
+        ``kv`` (per-layer lists of k and v caches), each layer's roped k/v
+        are also written into its cache at [0, S)."""
+        x = self._embed(tokens)
+        rope = self._rope_fn(tokens, 0)
+        for i, block in enumerate(self.blocks):
+            x, k, v = block(x, rope)
+            if kv is not None:
+                write_kv(kv[0][i], kv[1][i], k, v, 0)
+        return self._logits(x)
+
+    def step(self, tokens: torch.Tensor, kv: tuple, pos: int) -> torch.Tensor:
+        """tokens (B, 1) at position ``pos`` over caches holding positions
+        [0, pos) -> logits (B, 1, vocab); writes the token's k/v at
+        ``pos``."""
+        x = self._embed(tokens)
+        rope = self._rope_fn(tokens, pos)
+        for i, block in enumerate(self.blocks):
+            x = block.decode(x, rope, kv[0][i], kv[1][i], pos)
+        return self._logits(x)
+
+
 def init_params(cfg: ArchConfig, seed: int = 0, dtype=torch.float32,
-                device=None) -> MambaLM:
-    """A ``MambaLM`` with weights drawn from a ``torch.Generator`` seeded
-    with ``seed`` on ``device`` (the card unless the caller asks for the
-    CPU), with the reference's distributions: embedding N(0, 1) and
-    ``lm_head`` at scale d^-0.5, truncated at 2 sigma; norms zero."""
-    _require_ssm(cfg)
+                device=None):
+    """A ``MambaLM`` (ssm) or ``DenseLM`` (dense) with weights drawn from
+    a ``torch.Generator`` seeded with ``seed`` on ``device`` (the card
+    unless the caller asks for the CPU), with the reference's
+    distributions: embedding N(0, 1) (tied: at scale d^-0.5) and
+    ``lm_head`` at d^-0.5, truncated at 2 sigma; norms and biases zero."""
+    require_served(cfg)
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
-    model = MambaLM(cfg, dtype, dev)
+    model = (MambaLM if cfg.family == "ssm" else DenseLM)(cfg, dtype, dev)
+    emb_scale = cfg.d_model ** -0.5 if cfg.tie_embeddings else 1.0
     with torch.no_grad():
-        model.embed.copy_(truncated_normal(model.embed.shape, 1.0, dtype,
-                                           gen, dev))
-        model.lm_head.copy_(truncated_normal(
-            model.lm_head.shape, cfg.d_model ** -0.5, dtype, gen, dev))
+        model.embed.copy_(truncated_normal(model.embed.shape, emb_scale,
+                                           dtype, gen, dev))
+        if not cfg.tie_embeddings:
+            model.lm_head.copy_(truncated_normal(
+                model.lm_head.shape, cfg.d_model ** -0.5, dtype, gen, dev))
     for block in model.blocks:
-        init_mamba(block.ssm, gen)
+        if cfg.family == "ssm":
+            init_mamba(block.ssm, gen)
+        else:
+            init_attention(block.attn, gen)
+            init_mlp(block.mlp, gen)
     return model
 
 
 @torch.no_grad()
-def forward(params: MambaLM, cfg: ArchConfig, batch: dict) -> torch.Tensor:
-    """batch: tokens (B, S).  Returns logits (B, S, vocab) from a zero
-    state."""
-    return params.run(batch["tokens"])[0]
+def forward(params, cfg: ArchConfig, batch: dict) -> torch.Tensor:
+    """batch: tokens (B, S).  Returns logits (B, S, vocab), from a zero
+    state (ssm) or without a cache (dense)."""
+    out = params.run(batch["tokens"])
+    return out[0] if cfg.family == "ssm" else out

@@ -11,7 +11,8 @@ from ..models.config import ArchConfig
 
 def make_serve_step(cfg: ArchConfig):
     """Returns serve_step(params, batch, cache) -> (token (B,), cache):
-    one ``decode_step`` and a greedy argmax over its logits."""
+    one ``decode_step`` and a greedy argmax over its logits, for any family
+    the port serves (``decode_step`` dispatches on ``cfg.family``)."""
 
     def serve_step(params, batch, cache):
         logits, cache = decode_step(params, cfg, batch, cache)

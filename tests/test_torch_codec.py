@@ -307,3 +307,68 @@ def test_fidelity_conversion_within_one_grey_level(stream):
         n_px, n_diff = n_px + d.size, n_diff + int((d > 0).sum())
     print(f"{stream}: {n_diff} of {n_px} converted pixels differ by 1")
     assert n_diff <= 1e-3 * n_px
+
+
+def _fma_lanes(w: np.ndarray, x: np.ndarray, lanes: int) -> np.ndarray:
+    """``w @ x`` for float32 (n_out, K) x (K, m), each output summed as
+    ``lanes`` fused multiply-add chains over k = l (mod lanes), each begun
+    with a plain product, the chains then added pairwise; the fused
+    multiply-add emulated in float64, where the product is exact."""
+    w64, x64 = w.astype(np.float64), x.astype(np.float64)
+    chains = []
+    for lane in range(min(lanes, w.shape[1])):
+        ks = range(lane, w.shape[1], lanes)
+        acc = None
+        for k in ks:
+            prod = w64[:, k:k + 1] * x64[k][None, :]
+            acc = (prod if acc is None else prod + acc).astype(np.float32) \
+                .astype(np.float64)
+        chains.append(acc.astype(np.float32))
+    while len(chains) > 1:
+        chains = [chains[i] + chains[i + 1] if i + 1 < len(chains)
+                  else chains[i] for i in range(0, len(chains), 2)]
+    return chains[0]
+
+
+def test_resize_product_order_is_one_chain_per_output():
+    """The resize fault's product order (ROADMAP §3).  Scene frames cropped
+    and resized at the fidelity test's knobs: the plain version's
+    products against ``jax.image.resize``, and the same products summed as
+    one sequential fused multiply-add chain per output (XLA:CPU's dot
+    order) and as 4 chains added pairwise (a vectorised split of the
+    sum).  The plain product gives the one-chain sums bit for bit, and the
+    split order differs from the reference in at least as many u8 pixels:
+    the product order is not what is left of the fault, the weights are.
+    The test prints the counts, and how many float32 outputs of the plain
+    product equal the one-chain sums (all of them on the hosts measured;
+    not asserted, since the CPU GEMM's order is the BLAS build's)."""
+    from repro.analytics.scene import generate_segment
+    from repro.core.knobs import FidelityOption as RF
+    from repro.core.knobs import IngestSpec as RSpec
+    from repro_torch.kernels.resize.resize import interp_matrix
+
+    frames = generate_segment("jackson", 1)[0][:2]
+    counts = {"plain": 0, "one chain": 0, "4 chains": 0}
+    exact = dict.fromkeys(counts, 0)
+    n_px = same = 0
+    for knobs in [("good", 1.0, 540, 0.5), ("good", 1.0, 270, 0.5),
+                  ("best", 0.75, 360, 1.0), ("best", 1.0, 144, 1.0),
+                  ("bad", 0.5, 400, 2 / 3)]:
+        f_to = RF(*knobs)
+        _, h2, w2 = RSpec().resolve(f_to)
+        x = np.asarray(RT.center_crop(jnp.asarray(frames, jnp.float32),
+                                      min(1.0, f_to.crop)))
+        want = np.asarray(RT.resize(jnp.asarray(x), h2, w2))
+        wy, wx = interp_matrix(h2, x.shape[1]), interp_matrix(w2, x.shape[2])
+        got = {"plain": T.resize(torch.from_numpy(x.copy()), h2, w2).numpy()}
+        for name, lanes in (("one chain", 1), ("4 chains", 4)):
+            got[name] = np.stack([_fma_lanes(wx, _fma_lanes(wy, f, lanes).T,
+                                             lanes).T for f in x])
+        n_px += want.size
+        same += int((got["plain"] == got["one chain"]).sum())
+        for name, out in got.items():
+            counts[name] += int((np.round(out) != np.round(want)).sum())
+            exact[name] += int((out == want).sum())
+    print(f"of {n_px} pixels: u8 differing {counts}; float32 equal to the "
+          f"reference {exact}; plain equal to one chain: {same}")
+    assert counts["plain"] <= counts["4 chains"]

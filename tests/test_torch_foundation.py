@@ -150,6 +150,9 @@ def test_port_import_pulls_in_neither_jax_nor_repro():
     assert {"repro_torch.codec.segment", "repro_torch.configs",
             "repro_torch.kernels.mamba_scan.mamba_scan",
             "repro_torch.kernels.mamba_scan.ops",
+            "repro_torch.kernels.attention.attention",
+            "repro_torch.kernels.attention.ops",
+            "repro_torch.models.attention",
             "repro_torch.models.serving", "repro_torch.models.convert",
             "repro_torch.train.train_step",
             "repro_torch.launch.serve"} <= set(mods)

@@ -1,12 +1,14 @@
 """The port's CUDA kernels (K1 dct8_dequantize, K2 resize_bilinear,
-K3 dct8_quantize, K5 mamba_scan) against their plain PyTorch versions.
+K3 dct8_quantize, K4 flash_attention, K5 mamba_scan) against their plain
+PyTorch versions.
 
 This file imports neither ``jax`` nor ``repro``, so it also runs on a GPU
 host that has PyTorch but no JAX.  On the CPU it checks what the kernels
 receive (the wrappers refuse CPU tensors, ``ops`` routes them to the plain
 versions, K2's banded taps reproduce the dense weights, K5's plain scan
-carries its state across a split); the tests marked ``cuda`` launch the
-kernels (and run the operators and the reduced Falcon-Mamba on the card)
+carries its state across a split, K4's decode form is a row of its
+prefill form); the tests marked ``cuda`` launch the kernels (and run the
+operators, the reduced Falcon-Mamba and a reduced StarCoder2 on the card)
 and skip without a card:
 ``PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_kernels.py``.
 """
@@ -23,6 +25,9 @@ from repro_torch.analytics.operators import OPERATORS
 from repro_torch.analytics.scene import generate_segment
 from repro_torch.codec import segment as S
 from repro_torch.core.knobs import FidelityOption, IngestSpec
+from repro_torch.kernels.attention import attention as K4
+from repro_torch.kernels.attention import ops as attn_ops
+from repro_torch.kernels.attention.ref import attention_ref
 from repro_torch.kernels.build import LAUNCHES
 from repro_torch.kernels.dct8 import dct8 as K13
 from repro_torch.kernels.dct8 import ops as dct_ops
@@ -137,6 +142,52 @@ def test_mamba_scan_plain_carries_state_across_a_split(dtype):
     y0, _ = mamba_scan_ref(delta, xc, b, c, a)
     assert torch.equal(y0, mamba_scan_ref(delta, xc, b, c, a,
                                           torch.zeros_like(h0))[0])
+
+
+def _attn_inputs(bsz, sq, sk, h, kvh, hd, dtype=torch.float32, seed=0,
+                 device="cpu"):
+    """q (bsz, sq, h, hd), k, v (bsz, sk, kvh, hd) from a seed, in
+    ``dtype``."""
+    g = torch.Generator().manual_seed(seed)
+    out = [torch.randn(shape, generator=g).to(dtype)
+           for shape in ((bsz, sq, h, hd), (bsz, sk, kvh, hd),
+                         (bsz, sk, kvh, hd))]
+    return [t.to(device) for t in out]
+
+
+def test_attention_wrapper_refuses_cpu_and_ops_routes_to_plain():
+    """K4's wrapper never falls back: CPU tensors, head dims it is not
+    built for and a decode group wider than one block serves are refused;
+    ``ops`` sends CPU tensors to the plain version."""
+    q, k, v = _attn_inputs(2, 5, 5, 4, 2, 64)
+    with pytest.raises(ValueError, match="CUDA"):
+        K4.flash_attention(q, k, v)
+    with pytest.raises(ValueError, match="head dims"):
+        K4.flash_attention(*_attn_inputs(1, 3, 3, 2, 1, 32))
+    with pytest.raises(ValueError, match="decode form"):
+        K4.flash_attention(*_attn_inputs(1, 1, 3, 34, 2, 64))
+    with pytest.raises(ValueError, match="k_len"):
+        K4.flash_attention(q, k, v, k_len=6)
+    assert torch.equal(attn_ops.gqa_attention(q, k, v),
+                       attention_ref(q, k, v))
+    assert torch.equal(attn_ops.gqa_attention(q[:, :1], k, v, 3, 4),
+                       attention_ref(q[:, :1], k, v, 3, 4))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attention_plain_decode_form_is_a_row_of_the_prefill_form(dtype):
+    """Query row t of the causal prefill over S keys equals the decode
+    form: that row alone at ``q_offset = t`` over a cache whose first
+    ``t + 1`` positions are valid (the rest hold other values); and a
+    chunk of rows at an offset equals the same rows of the full form."""
+    q, k, v = _attn_inputs(2, 9, 12, 6, 2, 16, dtype, seed=4)
+    full = attention_ref(q, k[:, :9], v[:, :9])
+    for t in (0, 4, 8):
+        row = attention_ref(q[:, t:t + 1], k, v, q_offset=t, k_len=t + 1)
+        torch.testing.assert_close(row, full[:, t:t + 1], atol=1e-6, rtol=0)
+    chunk = attention_ref(q[:, 5:], k, v, q_offset=5, k_len=9)
+    torch.testing.assert_close(chunk, full[:, 5:], atol=1e-6, rtol=0)
+    assert full.dtype == dtype
 
 
 # ---------------------------------------------------------------------------
@@ -280,6 +331,95 @@ def test_reduced_falcon_mamba_on_card_matches_plain_path(cuda):
     want, _, _ = generate(model_cpu, cfg, prompts, 5)
     assert toks.cpu().tolist() == want.tolist()
     from repro_torch.models import prefill
-    got = prefill(model, cfg, {"tokens": prompts.to(cuda)})[0]
-    ref = prefill(model_cpu, cfg, {"tokens": prompts})[0]
+    got = prefill(model, cfg, {"tokens": prompts.to(cuda)}, 12)[0]
+    ref = prefill(model_cpu, cfg, {"tokens": prompts}, 12)[0]
+    assert float((got.cpu() - ref).abs().max()) <= 1e-4
+
+
+# tolerance of K4 against its plain version, relative to max(1, max |o|):
+# both sum in float32 in different orders (~1e-6); in bfloat16 the one
+# final rounding may then land one bf16 ulp (2^-7 relative) apart
+ATTN_TOL = {torch.float32: 1e-5, torch.bfloat16: 2 ** -7}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("groups", [1, 4, 12])
+@pytest.mark.parametrize("sq", [1, 130, 300])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_kernel_matches_plain_on_card(cuda, hd, groups, sq,
+                                                      dtype):
+    """K4 over the sequence itself (q_offset 0, every key valid; Sq 1 runs
+    the decode form at position 0) against its plain version: 130 and 300
+    query rows leave ragged 64-row tiles."""
+    q, k, v = _attn_inputs(2, sq, sq, 2 * groups, 2, hd, dtype, seed=sq,
+                           device=cuda)
+    LAUNCHES.reset()
+    got = K4.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert LAUNCHES.snapshot() == {"flash_attention": 1}
+    want = attention_ref(q, k, v)
+    assert got.dtype == dtype and got.shape == want.shape
+    scale = max(1.0, float(want.float().abs().max()))
+    assert float((got.float() - want.float()).abs().max()) <= \
+        ATTN_TOL[dtype] * scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("groups", [1, 4, 12])
+@pytest.mark.parametrize("cache_len", [1, 255, 256, 257, 700])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_decode_form_matches_plain_on_card(cuda, hd, groups,
+                                                           cache_len, dtype):
+    """The decode form (Sq 1 at ``q_offset = len - 1``, ``k_len = len``)
+    over a 720-position cache whose tail holds other values: lengths on
+    both sides of the kernel's 256-key chunk."""
+    q, k, v = _attn_inputs(3, 1, 720, 2 * groups, 2, hd, dtype,
+                           seed=cache_len, device=cuda)
+    got = K4.flash_attention(q, k, v, cache_len - 1, cache_len)
+    want = attention_ref(q, k, v, cache_len - 1, cache_len)
+    scale = max(1.0, float(want.float().abs().max()))
+    assert float((got.float() - want.float()).abs().max()) <= \
+        ATTN_TOL[dtype] * scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q_offset,sq,k_len", [(100, 64, 164), (37, 130, 150),
+                                               (0, 200, 120)])
+def test_flash_attention_prefill_form_at_an_offset_on_card(cuda, q_offset, sq,
+                                                           k_len):
+    """The prefill form with a query offset and fewer valid keys than the
+    buffer holds (a prompt chunk over a cache), against the plain
+    version."""
+    q, k, v = _attn_inputs(2, sq, 256, 8, 2, 128, torch.float32,
+                           seed=q_offset, device=cuda)
+    got = K4.flash_attention(q, k, v, q_offset, k_len)
+    want = attention_ref(q, k, v, q_offset, k_len)
+    assert float((got - want).abs().max()) <= 1e-5 * max(
+        1.0, float(want.abs().max()))
+
+
+@pytest.mark.cuda
+def test_reduced_starcoder2_on_card_matches_plain_path(cuda):
+    """A reduced StarCoder2 at head_dim 64 (GQA, 2 groups): prefill and
+    decode steps on the card (K4 once per layer and step) give the CPU
+    plain path's logits within 1e-4, and the same greedy tokens."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import init_params, prefill
+
+    cfg = get_config("starcoder2-3b").reduced(d_model=256, n_kv_heads=2)
+    model_cpu = init_params(cfg, seed=0, device="cpu")
+    model = init_params(cfg, seed=0, device="cpu").to(cuda)
+    prompts = torch.randint(0, cfg.vocab_size, (2, 12),
+                            generator=torch.Generator().manual_seed(1))
+    LAUNCHES.reset()
+    toks, _, _ = generate(model, cfg, prompts.to(cuda), 5)
+    assert LAUNCHES.snapshot() == {"flash_attention": cfg.n_layers * 5}
+    want, _, _ = generate(model_cpu, cfg, prompts, 5)
+    assert toks.cpu().tolist() == want.tolist()
+    got = prefill(model, cfg, {"tokens": prompts.to(cuda)}, 12,
+                  torch.float32)[0]
+    ref = prefill(model_cpu, cfg, {"tokens": prompts}, 12, torch.float32)[0]
     assert float((got.cpu() - ref).abs().max()) <= 1e-4

@@ -108,7 +108,7 @@ def test_other_families_wait_for_their_slice():
         init_params(configs.get_config("recurrentgemma-9b").reduced(),
                     device="cpu")
     with pytest.raises(SystemExit):
-        serve.main(["--arch", "smollm-135m", "--device", "cpu"])
+        serve.main(["--arch", "qwen2-moe-a2.7b", "--device", "cpu"])
 
 
 def test_models_need_a_card_unless_cpu_is_asked(monkeypatch, carried):
@@ -266,7 +266,7 @@ def test_prefill_matches_reference_logits_and_cache(carried):
     want, ref_cache = ref_prefill(params, ref_cfg,
                                   {"tokens": jnp.asarray(toks)}, max_len=S,
                                   cache_dtype=jnp.float32)
-    logits, cache = prefill(model, cfg, {"tokens": _t(toks)})
+    logits, cache = prefill(model, cfg, {"tokens": _t(toks)}, S)
     _close(logits, want, LOGIT_TOL)
     assert cache["len"] == int(ref_cache["len"]) == P
     for i, st in enumerate(cache["rec"]):
@@ -284,7 +284,7 @@ def test_decode_steps_match_reference(carried):
     _, ref_cache = ref_prefill(params, ref_cfg,
                                {"tokens": jnp.asarray(toks[:, :P])},
                                max_len=S, cache_dtype=jnp.float32)
-    _, cache = prefill(model, cfg, {"tokens": _t(toks[:, :P])})
+    _, cache = prefill(model, cfg, {"tokens": _t(toks[:, :P])}, S)
     for t in range(P, S):
         want, ref_cache = ref_decode_step(
             params, ref_cfg, {"tokens": jnp.asarray(toks[:, t:t + 1])},
@@ -315,7 +315,7 @@ def test_serve_loop_matches_reference_greedy_tokens(carried):
 
 def test_init_cache_is_zero_and_shaped_as_reference(carried):
     _, _, cfg, _ = carried
-    cache = init_cache(cfg, B, torch.float32, "cpu")
+    cache = init_cache(cfg, B, S, torch.float32, "cpu")
     inner = cfg.ssm.expand * cfg.d_model
     assert cache["len"] == 0 and len(cache["rec"]) == cfg.n_layers
     for st in cache["rec"]:
