@@ -120,9 +120,6 @@ SCAN_TOL = 1e-5   # of the largest |value|: K5 vs its plain version
 # KV cache, the same traffic
 DENSE_ARCH = "starcoder2-3b"
 DECODE_LEN = 2049  # K4's decode form is held at this cache length
-# of the largest |output|: K4 vs its plain version in bf16, where both sum
-# in f32 and the one final rounding may land one bf16 ulp apart
-ATTN_TOL = 2 ** -7
 
 
 def card_line() -> str:
@@ -372,7 +369,7 @@ def profile_serve(torch, model, cfg, prompts, toks, t_prefill, t_decode):
 
     def run_prefill():
         cache["c"] = prefill(model, cfg, {"tokens": prompts},
-                             SERVE_PROMPT + SERVE_NEW, model.dtype)[1]
+                             SERVE_PROMPT + SERVE_NEW)[1]
 
     def run_steps():
         tok = toks[:, -1]
@@ -405,8 +402,7 @@ def hold_serve(torch, check, model, cfg, prompts, module, name, plain):
     hold = prompts[:, :HOLD_PROMPT]
     full = forward(model, cfg, {"tokens": hold})
     p = HOLD_PROMPT - HOLD_DECODE
-    logits, cache = prefill(model, cfg, {"tokens": hold[:, :p]}, HOLD_PROMPT,
-                            model.dtype)
+    logits, cache = prefill(model, cfg, {"tokens": hold[:, :p]}, HOLD_PROMPT)
     errs = [rel_err(torch, logits, full[:, :p])]
     for t in range(p, HOLD_PROMPT):
         step, cache = decode_step(model, cfg, {"tokens": hold[:, t:t + 1]},
@@ -545,7 +541,8 @@ def dense_serving_phase(torch, check, cfg, dev) -> dict:
     import torch.nn.functional as F
 
     from repro_torch.kernels.attention.attention import flash_attention
-    from repro_torch.kernels.attention.ref import attention_ref
+    from repro_torch.kernels.attention.ref import (HOLD, attention_ref,
+                                                   hold_ratio)
     from repro_torch.models import attention, init_params
 
     hd = cfg.resolved_head_dim
@@ -570,31 +567,50 @@ def dense_serving_phase(torch, check, cfg, dev) -> dict:
     free_card(torch)
 
     # -- K4 against its plain version, at one layer's shapes --------------
-    def qkv(bsz, sq, sk, h, kvh, d, seed):
+    # element by element within ref.HOLD, in bf16 (the served dtype) and in
+    # f32 (no final rounding, so only the order of the sums may differ)
+    def qkv(bsz, sq, sk, h, kvh, d, seed, dtype):
         g = torch.Generator(device=dev).manual_seed(seed)
         return [torch.randn(shape, generator=g, device=dev,
-                            dtype=torch.float32).to(torch.bfloat16)
+                            dtype=torch.float32).to(dtype)
                 for shape in ((bsz, sq, h, d), (bsz, sk, kvh, d),
                               (bsz, sk, kvh, d))]
 
     b, s, h, kvh = SERVE_BATCH, SERVE_PROMPT, cfg.n_heads, cfg.n_kv_heads
     cache_len = SERVE_PROMPT + SERVE_NEW
-    cases = (("prefill", qkv(b, s, s, h, kvh, hd, 0), 0, s),
-             ("head_dim 64, 16 heads over 16", qkv(b, s, s, 16, 16, 64, 1),
-              0, s),
-             (f"decode over a cache at length {DECODE_LEN}",
-              qkv(b, 1, cache_len, h, kvh, hd, 2), DECODE_LEN - 1,
-              DECODE_LEN))
-    errs = {}
-    for name, (q, k, v), q_offset, k_len in cases:
-        got = flash_attention(q, k, v, q_offset, k_len)
-        want = attention_ref(q, k, v, q_offset, k_len)
-        errs[name] = float((got.float() - want.float()).abs().max())
-        check(rel_err(torch, got, want) <= ATTN_TOL,
-              f"K4 flash_attention vs plain, {name}: q {tuple(q.shape)}, "
-              f"k/v {tuple(k.shape)} bf16, max |d| {errs[name]:.3g}")
-    q, k, v = cases[0][1]
-    dq, dk, dv = cases[2][1]
+    shapes = (("prefill", (b, s, s, h, kvh, hd), 0, s),
+              ("head_dim 64, 16 heads over 16", (b, s, s, 16, 16, 64), 0, s),
+              (f"decode over a cache at length {DECODE_LEN}",
+               (b, 1, cache_len, h, kvh, hd), DECODE_LEN - 1, DECODE_LEN))
+    cases, errs = {}, {}
+    for dtype in (torch.bfloat16, torch.float32):
+        for seed, (name, shape, q_offset, k_len) in enumerate(shapes):
+            q, k, v = qkv(*shape, seed, dtype)
+            got = flash_attention(q, k, v, q_offset, k_len)
+            want = attention_ref(q, k, v, q_offset, k_len)
+            ratio = hold_ratio(got, want)
+            errs[name, dtype] = float((got.float() - want.float()).abs().max())
+            u, r = HOLD[dtype]
+            check(ratio <= 1,
+                  f"K4 flash_attention vs plain, {name}: q {tuple(q.shape)}, "
+                  f"k/v {tuple(k.shape)} {str(dtype)[6:]}, max |d| "
+                  f"{errs[name, dtype]:.3g}, at most {ratio:.3g} of the bound "
+                  f"{u:.3g}·|want| + {r:.3g}·rms(row)")
+            if dtype == torch.bfloat16:
+                cases[name] = (q, k, v)
+                # the hold must see one middle key tile gone wrong
+                v_bad = v.clone()
+                v_bad[:, 1024:1088] = 0
+                bad = hold_ratio(attention_ref(q, k, v_bad, q_offset, k_len),
+                                 want)
+                check(bad > 1, f"K4 hold, {name}: the plain version with "
+                      f"values 1024..1087 zeroed stands at {bad:.3g} of the "
+                      f"bound, so it fails")
+                del v_bad
+            del q, k, v, got, want
+    free_card(torch)
+    q, k, v = cases[shapes[0][0]]
+    dq, dk, dv = cases[shapes[2][0]]
     decode_ms = time_ms(torch, lambda: flash_attention(
         dq, dk, dv, DECODE_LEN - 1, DECODE_LEN), 50)
     qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))

@@ -6,16 +6,19 @@
 //                      -> o (B, Sq, H, hd) in q's dtype
 //     o[b, i, h] = Σ_j softmax_j(s_ij) · v[b, j, h / (H/KV)]
 //     s_ij = (q[b, i, h] · hd^-0.5) · k[b, j, h / (H/KV)], kept where
-//     j < k_len and j <= q_offset + i, else -1e30.
+//     j < k_len and j <= q_offset + i, else -1e30 (q_offset 0 and k_len Sk
+//     when Sq > 1).
 //     Replaces the TPU kernel src/repro/kernels/attention/attention.py::
 //     flash_attention (_attn_kernel), which takes (B, H, S, hd) with the KV
 //     heads repeated by its wrapper and counts query positions from 0.  This
 //     one reads the model's layouts, indexes the KV head as h / (H/KV)
-//     without repeating it, and takes the absolute position of query row 0
-//     (q_offset) and the valid key count (k_len).  With q_offset 0 and
-//     k_len Sk it is the TPU kernel's causal function; with Sq 1,
-//     q_offset len-1 and k_len len over a cache it is the reference's
-//     decode_attention (src/repro/models/attention.py).  Called by
+//     without repeating it, and has two forms.  The prefill form (Sq > 1)
+//     takes q_offset 0 and k_len Sk only: the TPU kernel's causal function.
+//     The decode form (Sq 1) takes the absolute position of its query
+//     (q_offset len-1) and the valid key count (k_len len) over a cache: the
+//     reference's decode_attention (src/repro/models/attention.py).  A
+//     prompt chunk over a cache (a prefill form with q_offset > 0) is no
+//     served path's and is refused.  Called by
 //     repro_torch/models/attention.py once per layer: in prefill over the
 //     prompt, in every decode step over the cache.  The TPU kernel's window
 //     and logit soft-cap (gemma2) and its non-causal form (audio) are left
@@ -39,7 +42,7 @@
 //  * Prefill form (Sq > 1): one block of 256 threads per (tile of 64 query
 //    rows, query head, batch row).  The q tile is staged once in shared
 //    memory, scaled, in f32; key tiles of 64 rows of k and v are staged in
-//    f32, tiles wholly above the causal diagonal or past k_len are never
+//    f32, tiles wholly above the causal diagonal or past Sk are never
 //    read.  Thread (ty, tx) of a 16x16 grid owns query rows 4ty..4ty+3 and,
 //    in q·kᵀ, keys tx + 16j; its running max, sum and its 4 x hd/16 slice
 //    of the accumulator stay in registers.  A row's max and sum are reduced
@@ -126,7 +129,7 @@ template <typename T, int HD>
 __global__ void __launch_bounds__(kThreads)
 prefill_kernel(const T* __restrict__ q, const T* __restrict__ k,
                const T* __restrict__ v, T* __restrict__ o, int Sq, int Sk,
-               int H, int KV, int q_offset, int k_len, float scale) {
+               int H, int KV, float scale) {
   constexpr int LD = HD + 4;    // padded row of q_s and k_s, in floats
   constexpr int LDP = kBQ + 4;  // padded row of p_s
   constexpr int V4 = HD / 4;    // float4 columns of a row
@@ -166,8 +169,8 @@ prefill_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int d = 0; d < 4 * DC; ++d) acc[i][d] = 0.f;
   }
 
-  // keys any row of this tile may see: below k_len and up to its last row
-  const int n_keys = min(k_len, q_offset + min(q0 + kBQ, Sq));
+  // keys any row of this tile may see: below Sk and up to its last row
+  const int n_keys = min(Sk, min(q0 + kBQ, Sq));
   for (int k0 = 0; k0 < n_keys; k0 += kBK) {
     __syncthreads();  // q_s is staged; the last tile's readers are done
     for (int i = tid; i < kBK * V4; i += kThreads) {
@@ -208,12 +211,12 @@ prefill_kernel(const T* __restrict__ q, const T* __restrict__ k,
     // mask, then the online softmax of each of this thread's rows
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
-      const int pos = q_offset + q0 + ty * 4 + i;
+      const int pos = q0 + ty * 4 + i;
       float mx = kNegInf;
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int key = k0 + tx + 16 * j;
-        if (!(key < k_len && key <= pos)) s[i][j] = kNegInf;
+        if (!(key < Sk && key <= pos)) s[i][j] = kNegInf;
         mx = fmaxf(mx, s[i][j]);
       }
       const float m_new = fmaxf(m[i], max16(mx));
@@ -389,8 +392,7 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
     if (attr != cudaSuccess) return (int)attr;
     const dim3 grid((Sq + kBQ - 1) / kBQ, H, B);
     prefill_kernel<T, HD><<<grid, kThreads, smem, stream>>>(
-        (const T*)q, (const T*)k, (const T*)v, (T*)o, Sq, Sk, H, KV,
-        q_offset, k_len, scale);
+        (const T*)q, (const T*)k, (const T*)v, (T*)o, Sq, Sk, H, KV, scale);
   }
   return (int)cudaGetLastError();
 }
@@ -414,13 +416,15 @@ int launch_hd(int hd, const void* q, const void* k, const void* v, void* o,
 }  // namespace
 
 // is_bf16: 1 when q, k, v and o are bf16, 0 for f32.  Sq 1 runs the decode
-// form, longer queries the prefill form.  Returns cudaGetLastError().
+// form, longer queries the prefill form, which takes q_offset 0 and k_len Sk
+// only.  Returns cudaGetLastError().
 extern "C" int flash_attention(const void* q, const void* k, const void* v,
                                void* o, int B, int Sq, int Sk, int H, int KV,
                                int hd, int q_offset, int k_len, float scale,
                                int is_bf16, void* stream) {
   if (B <= 0 || Sq <= 0 || KV <= 0 || H % KV != 0 || k_len < 1 ||
-      k_len > Sk || q_offset < 0)
+      k_len > Sk || q_offset < 0 ||
+      (Sq > 1 && (q_offset != 0 || k_len != Sk)))
     return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
   if (is_bf16)

@@ -7,10 +7,12 @@ counts (its wrapper repeats the KV heads) and counts query positions from
 0.  This one takes the model's layouts -- q (B, Sq, H, hd), k and v
 (B, Sk, KV, hd) -- reads KV head ``h // (H / KV)`` for query head h
 without repeating it, and takes two scalars: ``q_offset``, the absolute
-position of query row 0, and ``k_len``, the number of valid keys.  With
-``q_offset = 0`` and ``k_len = Sk`` it computes the TPU kernel's causal
-function; with Sq = 1, ``q_offset = len - 1`` and ``k_len = len`` over a
-KV cache it computes the reference's ``decode_attention``.  The TPU
+position of query row 0, and ``k_len``, the number of valid keys.  Over
+a prompt (Sq > 1) it takes ``q_offset = 0`` and ``k_len = Sk`` only, and
+computes the TPU kernel's causal function; with Sq = 1, ``q_offset =
+len - 1`` and ``k_len = len`` over a KV cache it computes the
+reference's ``decode_attention``.  A prompt chunk over a cache (Sq > 1
+at an offset) is no served path's and is refused.  The TPU
 kernel's sliding window and logit soft-cap (gemma2) and its non-causal
 form (audio) are left to the slices whose configs use them.
 
@@ -63,7 +65,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """q (B, Sq, H, hd); k, v (B, Sk, KV, hd); one dtype, float32 or
     bfloat16, on the card.  Query row i sits at position ``q_offset + i``
     and sees key j when ``j < k_len`` (default Sk) and ``j <= q_offset +
-    i``.  Returns (B, Sq, H, hd) in q's dtype."""
+    i``; with Sq > 1, ``q_offset`` must be 0 and ``k_len`` Sk.  Returns
+    (B, Sq, H, hd) in q's dtype."""
     if q.dim() != 4 or k.dim() != 4:
         raise ValueError("flash_attention takes (B, S, heads, hd) inputs")
     bsz, sq, h, hd = q.shape
@@ -82,6 +85,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if not 1 <= k_len <= sk or q_offset < 0:
         raise ValueError(f"flash_attention: k_len {k_len} must be in "
                          f"[1, {sk}] and q_offset {q_offset} >= 0")
+    if sq > 1 and (q_offset, k_len) != (0, sk):
+        raise ValueError(f"flash_attention: the prefill form (Sq {sq}) takes "
+                         f"q_offset 0 and k_len {sk}, got {q_offset}, {k_len}")
     if sq == 1 and h // kvh > MAX_DECODE_GROUPS:
         raise ValueError(f"flash_attention: the decode form serves at most "
                          f"{MAX_DECODE_GROUPS} query heads per KV head, got "

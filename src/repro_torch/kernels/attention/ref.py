@@ -16,6 +16,14 @@ import torch
 
 NEG_INF = -1e30
 
+#: How far the CUDA kernel may lie from this version on the same inputs,
+#: element by element: |got - want| <= u * |want| + r * rms(want's row),
+#: the rms taken over a query row's hd values.  Both sum in float32 in
+#: different orders, which moves an output by a few eps * sqrt(keys) of
+#: its row's rms: r covers that.  In bfloat16 each then rounds once, and
+#: the two may land one bf16 ulp apart, at most 2^-7 of |want|: u.
+HOLD = {torch.float32: (0.0, 2 ** -13), torch.bfloat16: (2 ** -7, 2 ** -10)}
+
 
 def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   q_offset: int = 0, k_len: int | None = None
@@ -36,3 +44,14 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bkgqp,bpkd->bqkgd", p, v.to(torch.float32))
     return out.reshape(b, sq, h, hd).to(q.dtype)
+
+
+def hold_ratio(got: torch.Tensor, want: torch.Tensor) -> float:
+    """The largest ratio of |got - want| to its bound in ``HOLD`` for
+    want's dtype, over all elements; the kernel holds when it is at most
+    1."""
+    u, r = HOLD[want.dtype]
+    w = want.to(torch.float32)
+    rms = w.square().mean(dim=-1, keepdim=True).sqrt()
+    bound = (u * w.abs() + r * rms).clamp_min(torch.finfo(torch.float32).tiny)
+    return float(((got.to(torch.float32) - w).abs() / bound).max())

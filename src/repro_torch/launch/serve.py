@@ -49,8 +49,7 @@ def generate(model, cfg, prompts: torch.Tensor, new_tokens: int):
     max_len = prompts.shape[1] + new_tokens
     _sync(dev)
     t0 = time.perf_counter()
-    logits, cache = prefill(model, cfg, {"tokens": prompts}, max_len,
-                            model.dtype)
+    logits, cache = prefill(model, cfg, {"tokens": prompts}, max_len)
     tok = torch.argmax(logits[:, -1], dim=-1)
     _sync(dev)
     t_prefill = time.perf_counter() - t0

@@ -52,25 +52,25 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int,
 
 @torch.no_grad()
 def prefill(params, cfg: ArchConfig, batch: dict, max_len: int,
-            cache_dtype=torch.bfloat16):
+            cache_dtype=None):
     """batch: tokens (B, S).  Returns (logits (B, S, vocab), cache after
-    the S tokens).  Dense: the cache holds ``max_len`` positions in
-    ``cache_dtype``, which must be the model's dtype (K4 takes q, k and v
-    of one dtype).  Ssm: ``max_len`` and ``cache_dtype`` are unused; the
-    states take the model's dtype, as the reference's
-    ``_prefill_recurrent`` returns them."""
+    the S tokens).  Dense: the cache holds ``max_len`` positions in the
+    model's dtype (K4 takes q, k and v of one dtype); ``cache_dtype``, the
+    reference's argument, may only name that dtype.  Ssm: ``max_len`` and
+    ``cache_dtype`` are unused; the states take the model's dtype, as the
+    reference's ``_prefill_recurrent`` returns them."""
     tokens = batch["tokens"]
     b, s = tokens.shape
     if cfg.family == "ssm":
         cache = init_cache(cfg, b, max_len, params.dtype, tokens.device)
         logits, rec = params.run(tokens, cache["rec"])
         return logits, {"len": s, "rec": rec}
-    if cache_dtype != params.dtype:
+    if cache_dtype not in (None, params.dtype):
         raise ValueError(f"the KV cache must take the model's dtype "
                          f"({params.dtype}), not {cache_dtype}")
     if s > max_len:
         raise ValueError(f"prompt of {s} tokens exceeds max_len {max_len}")
-    cache = init_cache(cfg, b, max_len, cache_dtype, tokens.device)
+    cache = init_cache(cfg, b, max_len, params.dtype, tokens.device)
     logits = params.run(tokens, (cache["k"], cache["v"]))
     return logits, dict(cache, len=s)
 

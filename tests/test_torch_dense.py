@@ -306,8 +306,7 @@ def test_prefill_matches_reference_logits_and_cache(carried):
     want, ref_cache = ref_prefill(params, ref_cfg,
                                   {"tokens": jnp.asarray(toks)}, max_len=S,
                                   cache_dtype=jnp.float32)
-    logits, cache = prefill(model, cfg, {"tokens": _t(toks)}, S,
-                            torch.float32)
+    logits, cache = prefill(model, cfg, {"tokens": _t(toks)}, S)
     _close(logits, want, LOGIT_TOL)
     assert cache["len"] == int(ref_cache["len"]) == P
     for i in range(cfg.n_layers):
@@ -325,8 +324,7 @@ def test_decode_steps_match_reference(carried):
     _, ref_cache = ref_prefill(params, ref_cfg,
                                {"tokens": jnp.asarray(toks[:, :P])},
                                max_len=S, cache_dtype=jnp.float32)
-    _, cache = prefill(model, cfg, {"tokens": _t(toks[:, :P])}, S,
-                       torch.float32)
+    _, cache = prefill(model, cfg, {"tokens": _t(toks[:, :P])}, S)
     errs = []
     for t in range(P, S):
         want, ref_cache = ref_decode_step(
@@ -380,8 +378,10 @@ def test_cache_dtype_must_be_the_models_and_the_cache_bounded(carried):
     with pytest.raises(ValueError, match="dtype"):
         prefill(model, cfg, {"tokens": toks}, S, torch.bfloat16)
     with pytest.raises(ValueError, match="max_len"):
-        prefill(model, cfg, {"tokens": toks}, P - 1, torch.float32)
+        prefill(model, cfg, {"tokens": toks}, P - 1)
     _, cache = prefill(model, cfg, {"tokens": toks}, P, torch.float32)
+    assert cache["k"][0].dtype == torch.float32
+    _, cache = prefill(model, cfg, {"tokens": toks}, P)
     with pytest.raises(ValueError, match="full"):
         decode_step(model, cfg, {"tokens": toks[:, :1]}, cache)
 
