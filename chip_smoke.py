@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one card.
 
-Three paths, each through the entry points a user calls, each with the
+Four paths, each through the entry points a user calls, each with the
 launch counters zeroed just before it and read just after: the video path
-(below), the serving phase (Falcon-Mamba-7B) and the dense serving phase
-(StarCoder2-3B), further below.
+(below), the serving phase (Falcon-Mamba-7B), the dense serving phase
+(StarCoder2-3B) and the hybrid serving phase (RecurrentGemma-9B), further
+below.
 
 Drives the port's main path at the paper's 720p30 through the entry points
 a user calls: ``VideoStore.ingest_segment`` writes 4 segments of
@@ -77,6 +78,26 @@ the largest output.  K4 is timed beside
 ``F.scaled_dot_product_attention`` as its yardstick (``library_ms``),
 which the port never calls.
 
+The hybrid serving phase serves ``recurrentgemma-9b`` at its published
+width and depth (38 layers: 26 RG-LRU and 12 local attention, d_model
+4096, 16 heads over 1 KV head, head_dim 256, window 2048, GeGLU d_ff
+12288, vocab 256000) with bf16 weights drawn from a seed on the card:
+``generate`` prefills a batch of 2 random 4096-token prompts (longer than
+the window, so the prefill's window masks and the ring buffers wrap on the
+first decode step) and decodes 32 greedy tokens, after one untimed
+warm-up.  K6 (rglru_scan) must launch 26 times and K4 12 times for the
+prefill and for each serve step.  Then, with f32 weights, batch 1 and a
+2088-token prompt, it holds a 2080-token prefill + 8 decode steps against
+the full forward and the kernel route against the same model with K6's
+and K4's plain versions bound in their place (1e-3 of the largest
+|logit|, 8 greedy tokens equal); K6 against its plain version at one
+layer's prefill shape (2, 4096, 4096) and at S 1 from a state (within
+2^-20 of the largest |h|); and K4 against its plain version with the
+window at head_dim 256 (2, 4096, 16 over 1, 256) and in its decode form
+over a full ring, element by element within ``ref.HOLD``, in bf16 and in
+f32.  K4 with the window is timed beside ``F.scaled_dot_product_attention``
+with an explicit banded mask; no single PyTorch call computes K6.
+
 Prints the queries' x-realtime, each serving phase's prefill time and
 decode rate, a ``{"kernels": [...]}`` line, the card's name and power
 limit, and last ``{"ok": true, "device": {...}}``.  Exits
@@ -120,6 +141,14 @@ SCAN_TOL = 1e-5   # of the largest |value|: K5 vs its plain version
 # KV cache, the same traffic
 DENSE_ARCH = "starcoder2-3b"
 DECODE_LEN = 2049  # K4's decode form is held at this cache length
+# the hybrid serving phase: RecurrentGemma-9B at full width, bf16 weights
+# and ring buffers; prompts longer than the 2048-token window
+HYBRID_ARCH = "recurrentgemma-9b"
+HYBRID_BATCH, HYBRID_PROMPT = 2, 4096
+HYBRID_HOLD_PROMPT, HYBRID_HOLD_DECODE = 2088, 8  # 2080 prefilled, > window
+# K6 vs its plain version, of max(1, max |h|): both round each step once;
+# the plain version's float64 step may land one ulp off at a float32 tie
+LRU_TOL = 2 ** -20
 
 
 def card_line() -> str:
@@ -326,11 +355,12 @@ def rel_err(torch, got, want) -> float:
         1.0, float(want.float().abs().max()))
 
 
-def timed_serve(torch, check, model, cfg, prompts, kernel: str):
+def timed_serve(torch, check, model, cfg, prompts, per_step: dict):
     """One untimed warm-up of ``generate``, then the timed and counted run
-    (counters zeroed just before it, read just after).  Checks that
-    ``kernel`` launched once per layer for the prefill and for each serve
-    step.  Returns (tokens, launches, prefill s, decode s)."""
+    (counters zeroed just before it, read just after).  Checks that each
+    kernel of ``per_step`` launched its given number of times (one per
+    layer it serves) for the prefill and for each serve step.  Returns
+    (tokens, launches, prefill s, decode s)."""
     from repro_torch.kernels import build
     from repro_torch.launch.serve import generate
 
@@ -341,18 +371,20 @@ def timed_serve(torch, check, model, cfg, prompts, kernel: str):
     torch.cuda.synchronize()
     launches = build.LAUNCHES.snapshot()
     steps = SERVE_NEW - 1
-    print(f"serve {cfg.name}: prefill {SERVE_BATCH}x{SERVE_PROMPT} in "
+    bsz, plen = prompts.shape
+    print(f"serve {cfg.name}: prefill {bsz}x{plen} in "
           f"{t_prefill * 1e3:.1f} ms; {steps} serve steps in "
           f"{t_decode * 1e3:.1f} ms ({t_decode / steps * 1e3:.2f} ms a step, "
-          f"{SERVE_BATCH * steps / t_decode:.1f} tok/s decode); peak "
+          f"{bsz * steps / t_decode:.1f} tok/s decode); peak "
           f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB; "
           f"launches {launches}", flush=True)
-    want = cfg.n_layers * (1 + steps)
-    check(launches.get(kernel, 0) == want,
-          f"serve {cfg.name}: {kernel} launched {launches.get(kernel, 0)} "
-          f"times, {cfg.n_layers} per prefill and per serve step "
-          f"({want} expected)")
-    check(tuple(toks.shape) == (SERVE_BATCH, SERVE_NEW)
+    for kernel, n in per_step.items():
+        want = n * (1 + steps)
+        check(launches.get(kernel, 0) == want,
+              f"serve {cfg.name}: {kernel} launched "
+              f"{launches.get(kernel, 0)} times, {n} per prefill and per "
+              f"serve step ({want} expected)")
+    check(tuple(toks.shape) == (bsz, SERVE_NEW)
           and bool(((toks >= 0) & (toks < cfg.vocab_size)).all()),
           f"serve {cfg.name}: greedy tokens {tuple(toks.shape)} in [0, vocab)")
     return toks, launches, t_prefill, t_decode
@@ -369,7 +401,7 @@ def profile_serve(torch, model, cfg, prompts, toks, t_prefill, t_decode):
 
     def run_prefill():
         cache["c"] = prefill(model, cfg, {"tokens": prompts},
-                             SERVE_PROMPT + SERVE_NEW)[1]
+                             prompts.shape[1] + SERVE_NEW)[1]
 
     def run_steps():
         tok = toks[:, -1]
@@ -390,39 +422,43 @@ def profile_serve(torch, model, cfg, prompts, toks, t_prefill, t_decode):
               flush=True)
 
 
-def hold_serve(torch, check, model, cfg, prompts, module, name, plain):
-    """With f32 weights on a ``HOLD_PROMPT``-token prompt: prefill of all
-    but ``HOLD_DECODE`` tokens plus that many decode steps against the full
-    forward, then the kernel route against the same model with
-    ``module.name`` bound to the plain version ``plain``: forward logits
-    within ``LOGIT_TOL`` of the largest |logit|, greedy tokens equal."""
+def hold_serve(torch, check, model, cfg, hold, n_decode, plains):
+    """With f32 weights on the prompts ``hold`` (B, P): prefill of all but
+    ``n_decode`` tokens plus that many decode steps against the full
+    forward, then the kernel route against the same model with each
+    ``module.name`` of ``plains`` (module, name, plain) bound to its plain
+    version: forward logits within ``LOGIT_TOL`` of the largest |logit|,
+    greedy tokens equal."""
     from repro_torch.launch.serve import generate
     from repro_torch.models import decode_step, forward, prefill
 
-    hold = prompts[:, :HOLD_PROMPT]
+    bsz, plen = hold.shape
     full = forward(model, cfg, {"tokens": hold})
-    p = HOLD_PROMPT - HOLD_DECODE
-    logits, cache = prefill(model, cfg, {"tokens": hold[:, :p]}, HOLD_PROMPT)
+    p = plen - n_decode
+    logits, cache = prefill(model, cfg, {"tokens": hold[:, :p]}, plen)
     errs = [rel_err(torch, logits, full[:, :p])]
-    for t in range(p, HOLD_PROMPT):
+    del logits
+    for t in range(p, plen):
         step, cache = decode_step(model, cfg, {"tokens": hold[:, t:t + 1]},
                                   cache)
         errs.append(rel_err(torch, step, full[:, t]))
     check(bool(torch.isfinite(full).all())
-          and tuple(full.shape) == (SERVE_BATCH, HOLD_PROMPT, cfg.vocab_size)
+          and tuple(full.shape) == (bsz, plen, cfg.vocab_size)
           and max(errs) <= LOGIT_TOL,
-          f"hold {cfg.name}: prefill({p}) + {HOLD_DECODE} decode steps vs "
-          f"forward({HOLD_PROMPT}), f32, logits {tuple(full.shape)} finite, "
+          f"hold {cfg.name}: prefill({p}) + {n_decode} decode steps vs "
+          f"forward({plen}), f32, logits {tuple(full.shape)} finite, "
           f"max |d| {max(errs):.3g} of the largest |logit| "
           f"({float(full.abs().max()):.3g})")
     toks_k, _, _ = generate(model, cfg, hold, HOLD_NEW)
-    kernel = getattr(module, name)
-    setattr(module, name, plain)  # the plain version, on the card
+    kernels = [getattr(module, name) for module, name, _ in plains]
+    for module, name, plain in plains:
+        setattr(module, name, plain)  # the plain version, on the card
     try:
         full_p = forward(model, cfg, {"tokens": hold})
         toks_p, _, _ = generate(model, cfg, hold, HOLD_NEW)
     finally:
-        setattr(module, name, kernel)
+        for (module, name, _), kernel in zip(plains, kernels):
+            setattr(module, name, kernel)
     err = rel_err(torch, full, full_p)
     check(err <= LOGIT_TOL and torch.equal(toks_k, toks_p),
           f"hold {cfg.name}: kernel route vs plain version on the card, f32, "
@@ -430,9 +466,9 @@ def hold_serve(torch, check, model, cfg, prompts, module, name, plain):
           f"{HOLD_NEW} greedy tokens equal: {torch.equal(toks_k, toks_p)}")
 
 
-def served_model(torch, cfg, dev):
+def served_model(torch, cfg, dev, batch=SERVE_BATCH, prompt=SERVE_PROMPT):
     """``cfg`` with bf16 weights drawn from ``SERVE_SEED`` on the card, and
-    ``SERVE_BATCH`` random prompts of ``SERVE_PROMPT`` tokens."""
+    ``batch`` random prompts of ``prompt`` tokens."""
     from repro_torch.models import init_params
 
     t0 = time.perf_counter()
@@ -444,7 +480,7 @@ def served_model(torch, cfg, dev):
           f"{time.perf_counter() - t0:.1f} s, {weight_bytes / 1e9:.2f} GB",
           flush=True)
     gen = torch.Generator(device=dev).manual_seed(SERVE_SEED + 1)
-    prompts = torch.randint(0, cfg.vocab_size, (SERVE_BATCH, SERVE_PROMPT),
+    prompts = torch.randint(0, cfg.vocab_size, (batch, prompt),
                             generator=gen, device=dev)
     return model, prompts
 
@@ -473,15 +509,15 @@ def serving_phase(torch, check, cfg, dev) -> dict:
 
     # -- the timed serve, counted, and its profile ----------------------
     toks, launches, t_prefill, t_decode = timed_serve(
-        torch, check, model, cfg, prompts, "mamba_scan")
+        torch, check, model, cfg, prompts, {"mamba_scan": cfg.n_layers})
     profile_serve(torch, model, cfg, prompts, toks, t_prefill, t_decode)
     del model
     free_card(torch)
 
     # -- hold on the card: f32 weights, a 128-token prompt ----------------
     model = init_params(cfg, SERVE_SEED, torch.float32, dev)
-    hold_serve(torch, check, model, cfg, prompts, recurrent,
-               "selective_scan", mamba_scan_ref)
+    hold_serve(torch, check, model, cfg, prompts[:, :HOLD_PROMPT],
+               HOLD_DECODE, [(recurrent, "selective_scan", mamba_scan_ref)])
     del model
     free_card(torch)
 
@@ -533,6 +569,16 @@ def serving_phase(torch, check, cfg, dev) -> dict:
             "library_ms": None}
 
 
+def attention_inputs(torch, dev, bsz, sq, sk, h, kvh, d, seed, dtype):
+    """q (bsz, sq, h, d), k, v (bsz, sk, kvh, d), standard normal from
+    ``seed`` on the card, in ``dtype``."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return [torch.randn(shape, generator=g, device=dev,
+                        dtype=torch.float32).to(dtype)
+            for shape in ((bsz, sq, h, d), (bsz, sk, kvh, d),
+                          (bsz, sk, kvh, d))]
+
+
 def dense_serving_phase(torch, check, cfg, dev) -> dict:
     """``cfg`` (StarCoder2-3B) served on ``dev`` with a bf16 KV cache, the
     kernel route held against K4's plain version and decode against
@@ -554,28 +600,21 @@ def dense_serving_phase(torch, check, cfg, dev) -> dict:
 
     # -- the timed serve, counted, and its profile ----------------------
     toks, launches, t_prefill, t_decode = timed_serve(
-        torch, check, model, cfg, prompts, "flash_attention")
+        torch, check, model, cfg, prompts, {"flash_attention": cfg.n_layers})
     profile_serve(torch, model, cfg, prompts, toks, t_prefill, t_decode)
     del model
     free_card(torch)
 
     # -- hold on the card: f32 weights, a 128-token prompt ----------------
     model = init_params(cfg, SERVE_SEED, torch.float32, dev)
-    hold_serve(torch, check, model, cfg, prompts, attention, "gqa_attention",
-               attention_ref)
+    hold_serve(torch, check, model, cfg, prompts[:, :HOLD_PROMPT],
+               HOLD_DECODE, [(attention, "gqa_attention", attention_ref)])
     del model
     free_card(torch)
 
     # -- K4 against its plain version, at one layer's shapes --------------
     # element by element within ref.HOLD, in bf16 (the served dtype) and in
     # f32 (no final rounding, so only the order of the sums may differ)
-    def qkv(bsz, sq, sk, h, kvh, d, seed, dtype):
-        g = torch.Generator(device=dev).manual_seed(seed)
-        return [torch.randn(shape, generator=g, device=dev,
-                            dtype=torch.float32).to(dtype)
-                for shape in ((bsz, sq, h, d), (bsz, sk, kvh, d),
-                              (bsz, sk, kvh, d))]
-
     b, s, h, kvh = SERVE_BATCH, SERVE_PROMPT, cfg.n_heads, cfg.n_kv_heads
     cache_len = SERVE_PROMPT + SERVE_NEW
     shapes = (("prefill", (b, s, s, h, kvh, hd), 0, s),
@@ -585,7 +624,7 @@ def dense_serving_phase(torch, check, cfg, dev) -> dict:
     cases, errs = {}, {}
     for dtype in (torch.bfloat16, torch.float32):
         for seed, (name, shape, q_offset, k_len) in enumerate(shapes):
-            q, k, v = qkv(*shape, seed, dtype)
+            q, k, v = attention_inputs(torch, dev, *shape, seed, dtype)
             got = flash_attention(q, k, v, q_offset, k_len)
             want = attention_ref(q, k, v, q_offset, k_len)
             ratio = hold_ratio(got, want)
@@ -649,6 +688,177 @@ def dense_serving_phase(torch, check, cfg, dev) -> dict:
             "bound_by": "bytes" if t_bytes >= max(t_ops, t_sfu)
             else "operations",
             "library_ms": time_ms(torch, library, 20)}
+
+
+def hybrid_serving_phase(torch, check, cfg, dev) -> list[dict]:
+    """``cfg`` (RecurrentGemma-9B) served on ``dev`` with bf16 ring
+    buffers, the kernel route held against K6's and K4's plain versions
+    and decode against forward past the window, and K6 and K4 (windowed,
+    head_dim 256) held and timed against their plain versions.  Returns
+    K6's and the windowed K4's ``kernels`` rows."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.attention.attention import flash_attention
+    from repro_torch.kernels.attention.ref import (HOLD, attention_ref,
+                                                   hold_ratio)
+    from repro_torch.kernels.rglru.ref import rglru_scan_ref
+    from repro_torch.kernels.rglru.rglru import rglru_scan
+    from repro_torch.models import attention, init_params, recurrent
+
+    hd, win = cfg.resolved_head_dim, cfg.rglru.window
+    kinds = [cfg.layer_kind(i) for i in range(cfg.n_layers)]
+    n_rec, n_attn = kinds.count("rglru"), kinds.count("local_attn")
+    print(f"serve: {cfg.name}, {cfg.n_layers} layers ({n_rec} RG-LRU, "
+          f"{n_attn} local attention), d_model {cfg.d_model}, lru_width "
+          f"{cfg.rglru.lru_width}, {cfg.n_heads} heads over {cfg.n_kv_heads} "
+          f"KV heads of {hd}, window {win}, d_ff {cfg.d_ff}, vocab "
+          f"{cfg.vocab_size}, {cfg.param_count() / 1e9:.2f} B params",
+          flush=True)
+    model, prompts = served_model(torch, cfg, dev, HYBRID_BATCH,
+                                  HYBRID_PROMPT)
+
+    # -- the timed serve, counted, and its profile ----------------------
+    toks, launches, t_prefill, t_decode = timed_serve(
+        torch, check, model, cfg, prompts,
+        {"rglru_scan": n_rec, "flash_attention": n_attn})
+    profile_serve(torch, model, cfg, prompts, toks, t_prefill, t_decode)
+    del model
+    free_card(torch)
+
+    # -- hold on the card: f32 weights, one prompt past the window --------
+    model = init_params(cfg, SERVE_SEED, torch.float32, dev)
+    hold_serve(torch, check, model, cfg, prompts[:1, :HYBRID_HOLD_PROMPT],
+               HYBRID_HOLD_DECODE,
+               [(recurrent, "lru_scan", rglru_scan_ref),
+                (attention, "gqa_attention", attention_ref)])
+    del model
+    free_card(torch)
+
+    # -- K6 against its plain version, at one layer's shapes --------------
+    # a and b as the mixer forms them at init: a = exp(-8·r·softplus(a_param))
+    # with softplus(a_param) = 0.65, b = sqrt(1 - a²)·(i·xc)
+    def lru_inputs(bsz, s, w, seed, with_h0=False):
+        g = torch.Generator(device=dev).manual_seed(seed)
+
+        def randn(*shape):
+            return torch.randn(shape, generator=g, device=dev)
+
+        a = torch.exp(-8.0 * 0.65 * torch.sigmoid(randn(bsz, s, w)))
+        b = torch.sqrt(torch.clamp(1 - a * a, min=1e-12)) * randn(bsz, s, w)
+        return a, b, (randn(bsz, w) if with_h0 else None)
+
+    w = cfg.rglru.lru_width
+    lru_errs = {}
+    for name, shape, with_h0 in (
+            ("prefill", (HYBRID_BATCH, HYBRID_PROMPT, w), False),
+            ("decode from a state", (HYBRID_BATCH, 1, w), True)):
+        a, b, h0 = lru_inputs(*shape, seed=len(lru_errs), with_h0=with_h0)
+        got, want = rglru_scan(a, b, h0), rglru_scan_ref(a, b, h0)
+        lru_errs[name] = float((got - want).abs().max())
+        scale = max(1.0, float(want.abs().max()))
+        check(lru_errs[name] <= LRU_TOL * scale,
+              f"K6 rglru_scan vs plain at {name} {shape}: max |d| "
+              f"{lru_errs[name]:.3g}, bound {LRU_TOL * scale:.3g}")
+    a, b, _ = lru_inputs(HYBRID_BATCH, HYBRID_PROMPT, w, seed=0)
+    lru_bytes = 3 * a.numel() * 4  # a, b read, h written, f32
+    lru_flops = 2 * a.numel()
+    lru_bound, lru_by = bound_ms(lru_bytes, lru_flops)
+    print(f"K6 bound at {tuple(a.shape)}: {lru_bytes / 1e6:.1f} MB -> "
+          f"{lru_bytes / PEAK_BYTES_S * 1e3:.4f} ms; {lru_flops / 1e9:.3f} "
+          f"GFLOP fp32 -> {lru_flops / PEAK_FP32_FLOP_S * 1e3:.4f} ms",
+          flush=True)
+    k6_row = {"name": "rglru_scan", "route": "cuda",
+              "source": "src/repro_torch/csrc/rglru.cu",
+              "replaces": "src/repro/kernels/rglru/rglru.py:48",
+              "launches": launches.get("rglru_scan", 0),
+              "max_abs_err": max(lru_errs.values()),
+              "ms": time_ms(torch, lambda: rglru_scan(a, b), 20),
+              "plain_ms": time_ms(torch, lambda: rglru_scan_ref(a, b), 2),
+              "bound_ms": lru_bound, "bound_by": lru_by,
+              "library_ms": None}
+    del a, b
+    free_card(torch)
+
+    # -- K4 with the window at head_dim 256, and its decode form over a ring
+    bsz, s, h, kvh = HYBRID_BATCH, HYBRID_PROMPT, cfg.n_heads, cfg.n_kv_heads
+    shapes = ((f"prefill, window {win}", (bsz, s, s, h, kvh, hd), 0, s, win),
+              (f"decode form over a full ring of {win}",
+               (bsz, 1, win, h, kvh, hd), win - 1, win, 0))
+    cases, errs = {}, {}
+    for dtype in (torch.bfloat16, torch.float32):
+        for seed, (name, shape, q_offset, k_len, window) in enumerate(shapes):
+            q, k, v = attention_inputs(torch, dev, *shape, seed + 10, dtype)
+            got = flash_attention(q, k, v, q_offset, k_len, window)
+            want = attention_ref(q, k, v, q_offset, k_len, window)
+            ratio = hold_ratio(got, want)
+            errs[name, dtype] = float((got.float() - want.float()).abs().max())
+            u, r = HOLD[dtype]
+            check(ratio <= 1,
+                  f"K4 flash_attention vs plain, {name}: q {tuple(q.shape)}, "
+                  f"k/v {tuple(k.shape)} {str(dtype)[6:]}, max |d| "
+                  f"{errs[name, dtype]:.3g}, at most {ratio:.3g} of the bound "
+                  f"{u:.3g}·|want| + {r:.3g}·rms(row)")
+            if dtype == torch.bfloat16:
+                cases[name] = (q, k, v)
+                if window:  # one 64-key tile inside the last rows' window
+                    lo = (s - window // 2) // 64 * 64
+                    v_bad = v.clone()
+                    v_bad[:, lo:lo + 64] = 0
+                    bad = hold_ratio(attention_ref(q, k, v_bad, 0, s, window),
+                                     want)
+                    check(bad > 1, f"K4 hold, {name}: the plain version with "
+                          f"values {lo}..{lo + 63} zeroed stands at "
+                          f"{bad:.3g} of the bound, so it fails")
+                    del v_bad
+            del q, k, v, got, want
+    free_card(torch)
+    q, k, v = cases[shapes[0][0]]
+    dq, dk, dv = cases[shapes[1][0]]
+    decode_ms = time_ms(torch, lambda: flash_attention(
+        dq, dk, dv, win - 1, win), 50)
+    qt = q.transpose(1, 2).contiguous()
+    kt, vt = (t.transpose(1, 2).expand(-1, h, -1, -1).contiguous()
+              for t in (k, v))
+    pos = torch.arange(s, device=dev)
+    band = (pos[:, None] >= pos[None, :]) & (pos[:, None] - pos[None, :] < win)
+
+    def library():
+        return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=band)
+
+    lib_err = float((library().transpose(1, 2).float() - attention_ref(
+        q, k, v, window=win).float()).abs().max())
+    # kept (q, k) pairs: min(i + 1, window) keys for row i
+    pairs = bsz * h * sum(min(i + 1, win) for i in range(s))
+    flops = 4 * hd * pairs
+    nbytes = 2 * (q.numel() + k.numel()) * q.element_size()  # q, o; k, v
+    clock = max_sm_clock_hz()
+    t_ops, t_bytes = flops / PEAK_BF16_FLOP_S, nbytes / PEAK_BYTES_S
+    t_sfu = pairs / (SFU_PER_SM_CLOCK * SMS * clock)
+    decode_bytes = 2 * bsz * win * kvh * hd * dk.element_size()
+    print(f"K4 bound at q {tuple(q.shape)}, k/v {tuple(k.shape)} bf16, "
+          f"window {win}: {pairs:.4g} (q, k) pairs x 4·{hd} = "
+          f"{flops / 1e9:.1f} GFLOP -> {t_ops * 1e3:.4f} ms at 989 TFLOP/s "
+          f"bf16 ({flops / PEAK_FP32_FLOP_S * 1e3:.3f} ms at 67 TFLOP/s "
+          f"fp32); {nbytes / 1e6:.1f} MB -> {t_bytes * 1e3:.4f} ms; "
+          f"{pairs:.4g} exp on the SFUs at {clock / 1e9:.3f} GHz -> "
+          f"{t_sfu * 1e3:.4f} ms.  Decode form over the ring: "
+          f"{decode_ms:.4f} ms, reads {decode_bytes / 1e6:.2f} MB, bound "
+          f"{decode_bytes / PEAK_BYTES_S * 1e3:.4f} ms.  SDPA (banded mask) "
+          f"vs plain: max |d| {lib_err:.3g}", flush=True)
+    k4_row = {"name": f"flash_attention (window {win}, head_dim {hd})",
+              "route": "cuda", "source": "src/repro_torch/csrc/attention.cu",
+              "replaces": "src/repro/kernels/attention/attention.py:80",
+              "launches": launches.get("flash_attention", 0),
+              "max_abs_err": max(errs.values()),
+              "ms": time_ms(torch, lambda: flash_attention(
+                  q, k, v, window=win), 10),
+              "plain_ms": time_ms(torch, lambda: attention_ref(
+                  q, k, v, window=win), 2),
+              "bound_ms": max(t_ops, t_bytes, t_sfu) * 1e3,
+              "bound_by": "bytes" if t_bytes >= max(t_ops, t_sfu)
+              else "operations",
+              "library_ms": time_ms(torch, library, 10)}
+    return [k6_row, k4_row]
 
 
 def main() -> int:
@@ -905,7 +1115,13 @@ def main() -> int:
     t0 = time.perf_counter()
     rows.append(dense_serving_phase(torch, check, get_config(DENSE_ARCH),
                                     dev))
-    print(f"dense serving phase: {time.perf_counter() - t0:.1f} s; whole "
+    print(f"dense serving phase: {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    free_card(torch)
+    t0 = time.perf_counter()
+    rows.extend(hybrid_serving_phase(torch, check, get_config(HYBRID_ARCH),
+                                     dev))
+    print(f"hybrid serving phase: {time.perf_counter() - t0:.1f} s; whole "
           f"run {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
 

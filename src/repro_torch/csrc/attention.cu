@@ -1,28 +1,34 @@
-// Hopper kernel for causal grouped-query flash attention, over a prompt and
-// over a KV cache.
+// Hopper kernel for causal grouped-query flash attention, over a prompt (with
+// an optional sliding window) and over a KV cache.
 //
 // K4  flash_attention  q (B, Sq, H, hd); k, v (B, Sk, KV, hd); one dtype,
-//                      f32 or bf16; hd 64 or 128; scalars q_offset, k_len
-//                      -> o (B, Sq, H, hd) in q's dtype
+//                      f32 or bf16; hd 64, 128 or 256; scalars q_offset,
+//                      k_len, window -> o (B, Sq, H, hd) in q's dtype
 //     o[b, i, h] = Σ_j softmax_j(s_ij) · v[b, j, h / (H/KV)]
 //     s_ij = (q[b, i, h] · hd^-0.5) · k[b, j, h / (H/KV)], kept where
-//     j < k_len and j <= q_offset + i, else -1e30 (q_offset 0 and k_len Sk
-//     when Sq > 1).
+//     j < k_len and j <= q_offset + i and (window = 0 or q_offset + i - j <
+//     window), else -1e30 (q_offset 0 and k_len Sk when Sq > 1; window 0
+//     when Sq = 1).
 //     Replaces the TPU kernel src/repro/kernels/attention/attention.py::
 //     flash_attention (_attn_kernel), which takes (B, H, S, hd) with the KV
 //     heads repeated by its wrapper and counts query positions from 0.  This
 //     one reads the model's layouts, indexes the KV head as h / (H/KV)
 //     without repeating it, and has two forms.  The prefill form (Sq > 1)
-//     takes q_offset 0 and k_len Sk only: the TPU kernel's causal function.
+//     takes q_offset 0 and k_len Sk only: the TPU kernel's causal function,
+//     with its sliding window when window > 0 (the mask of
+//     src/repro/models/attention.py::_block_mask).
 //     The decode form (Sq 1) takes the absolute position of its query
 //     (q_offset len-1) and the valid key count (k_len len) over a cache: the
 //     reference's decode_attention (src/repro/models/attention.py).  A
 //     prompt chunk over a cache (a prefill form with q_offset > 0) is no
-//     served path's and is refused.  Called by
-//     repro_torch/models/attention.py once per layer: in prefill over the
-//     prompt, in every decode step over the cache.  The TPU kernel's window
-//     and logit soft-cap (gemma2) and its non-causal form (audio) are left
-//     to the slices whose configs use them.
+//     served path's and is refused, and so is a window in the decode form:
+//     the hybrid family's ring buffer holds exactly the keys its query sees.
+//     Called by repro_torch/models/attention.py once per layer: in prefill
+//     over the prompt (with RecurrentGemma's window on its local-attention
+//     layers), in every decode step over the cache or the ring.  The TPU
+//     kernel's logit soft-cap and gemma2's windowed decode over a linear
+//     cache (L2g), and its non-causal form (audio), are left to the slices
+//     whose configs use them.
 //
 //     As in the TPU kernel: q is scaled in f32 before the product, scores,
 //     the running max and sum and the accumulator are f32, masked scores are
@@ -35,15 +41,20 @@
 // f32 cores at 67 TFLOP/s); q, k, v and o once each are 109 MB, 0.033 ms at
 // 3.35 TB/s; the 2.0e8 exps take 0.048 ms on the special-function units.
 // So the operations bound it.  A decode launch reads about 8.5 MB of cache,
-// 2.5 us.
+// 2.5 us.  At RecurrentGemma-9B's prefill shape (B 2, S 4096, H 16 over KV 1,
+// hd 256, window 2048, bf16): each (b, h) keeps 2048·2049/2 + 2048·2048 =
+// 6.29e6 pairs, 2.01e8 in all, 206 GFLOP at 4·256 a pair, 0.208 ms at
+// 989 TFLOP/s; about 142 MB, 0.042 ms; the exps 0.048 ms.  The operations
+// bound it.  Its decode form over a full ring (B 2, 2048 keys) reads about
+// 4.2 MB, 1.3 us.
 //
 // Design (a simple first kernel: f32 arithmetic on the CUDA cores, no
 // tensor cores, no asynchronous copies).
 //  * Prefill form (Sq > 1): one block of 256 threads per (tile of 64 query
 //    rows, query head, batch row).  The q tile is staged once in shared
 //    memory, scaled, in f32; key tiles of 64 rows of k and v are staged in
-//    f32, tiles wholly above the causal diagonal or past Sk are never
-//    read.  Thread (ty, tx) of a 16x16 grid owns query rows 4ty..4ty+3 and,
+//    f32, tiles wholly above the causal diagonal, wholly left of every
+//    row's window or past Sk are never read.  Thread (ty, tx) of a 16x16 grid owns query rows 4ty..4ty+3 and,
 //    in q·kᵀ, keys tx + 16j; its running max, sum and its 4 x hd/16 slice
 //    of the accumulator stay in registers.  A row's max and sum are reduced
 //    over its 16 threads with shuffles; p goes through shared memory (key
@@ -55,7 +66,9 @@
 //    one per thread for q·kᵀ; warp w runs the online softmax of query heads
 //    w and w+8 over the chunk in shared memory; then each thread
 //    accumulates p·v for one head-dim column of its heads, reading v rows
-//    coalesced.
+//    coalesced.  At hd 256 the prefill's shared memory is 216,064 bytes, one
+//    block an SM (232,448 at most), and a thread holds 4 x 16 accumulators;
+//    the decode form gives each thread one head-dim column of all 16 heads.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -129,7 +142,7 @@ template <typename T, int HD>
 __global__ void __launch_bounds__(kThreads)
 prefill_kernel(const T* __restrict__ q, const T* __restrict__ k,
                const T* __restrict__ v, T* __restrict__ o, int Sq, int Sk,
-               int H, int KV, float scale) {
+               int H, int KV, int window, float scale) {
   constexpr int LD = HD + 4;    // padded row of q_s and k_s, in floats
   constexpr int LDP = kBQ + 4;  // padded row of p_s
   constexpr int V4 = HD / 4;    // float4 columns of a row
@@ -169,9 +182,11 @@ prefill_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int d = 0; d < 4 * DC; ++d) acc[i][d] = 0.f;
   }
 
-  // keys any row of this tile may see: below Sk and up to its last row
+  // keys any row of this tile may see: below Sk, up to its last row and,
+  // with a window, from its first row's first key on (whole tiles only)
   const int n_keys = min(Sk, min(q0 + kBQ, Sq));
-  for (int k0 = 0; k0 < n_keys; k0 += kBK) {
+  const int k_first = window > 0 ? max(0, q0 - window + 1) / kBK * kBK : 0;
+  for (int k0 = k_first; k0 < n_keys; k0 += kBK) {
     __syncthreads();  // q_s is staged; the last tile's readers are done
     for (int i = tid; i < kBK * V4; i += kThreads) {
       const int r = i / V4, c = (i % V4) * 4;
@@ -216,7 +231,8 @@ prefill_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int key = k0 + tx + 16 * j;
-        if (!(key < Sk && key <= pos)) s[i][j] = kNegInf;
+        if (!(key < Sk && key <= pos && (window == 0 || pos - key < window)))
+          s[i][j] = kNegInf;
         mx = fmaxf(mx, s[i][j]);
       }
       const float m_new = fmaxf(m[i], max16(mx));
@@ -275,7 +291,7 @@ __global__ void __launch_bounds__(kThreads)
 decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
               const T* __restrict__ v, T* __restrict__ o, int Sk, int H,
               int KV, int n_keys, float scale) {
-  constexpr int GS = kThreads / HD;           // head stride in p·v: 4 or 2
+  constexpr int GS = kThreads / HD;           // head stride in p·v: 4, 2, 1
   constexpr int NG = kMaxGroups / GS;         // heads a thread may own in p·v
   __shared__ __align__(16) float q_s[kMaxGroups][HD];
   __shared__ float s_s[kMaxGroups][kChunk];   // scores, then p
@@ -377,9 +393,9 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
 template <typename T, int HD>
 int launch(const void* q, const void* k, const void* v, void* o, int B,
            int Sq, int Sk, int H, int KV, int q_offset, int k_len,
-           float scale, cudaStream_t stream) {
+           int window, float scale, cudaStream_t stream) {
   if (Sq == 1) {
-    if (H / KV > kMaxGroups) return (int)cudaErrorInvalidValue;
+    if (H / KV > kMaxGroups || window != 0) return (int)cudaErrorInvalidValue;
     const int n_keys = min(k_len, q_offset + 1);
     decode_kernel<T, HD><<<dim3(KV, B), kThreads, 0, stream>>>(
         (const T*)q, (const T*)k, (const T*)v, (T*)o, Sk, H, KV, n_keys,
@@ -392,7 +408,8 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
     if (attr != cudaSuccess) return (int)attr;
     const dim3 grid((Sq + kBQ - 1) / kBQ, H, B);
     prefill_kernel<T, HD><<<grid, kThreads, smem, stream>>>(
-        (const T*)q, (const T*)k, (const T*)v, (T*)o, Sq, Sk, H, KV, scale);
+        (const T*)q, (const T*)k, (const T*)v, (T*)o, Sq, Sk, H, KV, window,
+        scale);
   }
   return (int)cudaGetLastError();
 }
@@ -400,14 +417,17 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
 template <typename T>
 int launch_hd(int hd, const void* q, const void* k, const void* v, void* o,
               int B, int Sq, int Sk, int H, int KV, int q_offset, int k_len,
-              float scale, cudaStream_t stream) {
+              int window, float scale, cudaStream_t stream) {
   switch (hd) {
     case 64:
       return launch<T, 64>(q, k, v, o, B, Sq, Sk, H, KV, q_offset, k_len,
-                           scale, stream);
+                           window, scale, stream);
     case 128:
       return launch<T, 128>(q, k, v, o, B, Sq, Sk, H, KV, q_offset, k_len,
-                            scale, stream);
+                            window, scale, stream);
+    case 256:
+      return launch<T, 256>(q, k, v, o, B, Sq, Sk, H, KV, q_offset, k_len,
+                            window, scale, stream);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -416,20 +436,21 @@ int launch_hd(int hd, const void* q, const void* k, const void* v, void* o,
 }  // namespace
 
 // is_bf16: 1 when q, k, v and o are bf16, 0 for f32.  Sq 1 runs the decode
-// form, longer queries the prefill form, which takes q_offset 0 and k_len Sk
-// only.  Returns cudaGetLastError().
+// form, which takes window 0 only; longer queries the prefill form, which
+// takes q_offset 0 and k_len Sk only (window 0: causal, no window).
+// Returns cudaGetLastError().
 extern "C" int flash_attention(const void* q, const void* k, const void* v,
                                void* o, int B, int Sq, int Sk, int H, int KV,
-                               int hd, int q_offset, int k_len, float scale,
-                               int is_bf16, void* stream) {
+                               int hd, int q_offset, int k_len, int window,
+                               float scale, int is_bf16, void* stream) {
   if (B <= 0 || Sq <= 0 || KV <= 0 || H % KV != 0 || k_len < 1 ||
-      k_len > Sk || q_offset < 0 ||
-      (Sq > 1 && (q_offset != 0 || k_len != Sk)))
+      k_len > Sk || q_offset < 0 || window < 0 ||
+      (Sq > 1 && (q_offset != 0 || k_len != Sk)) || (Sq == 1 && window != 0))
     return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
   if (is_bf16)
     return launch_hd<__nv_bfloat16>(hd, q, k, v, o, B, Sq, Sk, H, KV,
-                                    q_offset, k_len, scale, st);
+                                    q_offset, k_len, window, scale, st);
   return launch_hd<float>(hd, q, k, v, o, B, Sq, Sk, H, KV, q_offset, k_len,
-                          scale, st);
+                          window, scale, st);
 }

@@ -1,1 +1,1 @@
-"""attention kernel: K4 (flash attention, causal, GQA, over a KV cache)."""
+"""attention kernel: K4 (flash attention, causal, GQA, sliding window, over a KV cache)."""

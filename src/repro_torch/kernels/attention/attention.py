@@ -1,4 +1,5 @@
-"""K4: causal GQA flash attention as a hand-written CUDA kernel
+"""K4: causal GQA flash attention, with an optional sliding window over a
+prompt, as a hand-written CUDA kernel
 (``csrc/attention.cu``), replacing the Pallas kernel
 ``src/repro/kernels/attention/attention.py::flash_attention``.
 
@@ -9,12 +10,14 @@ counts (its wrapper repeats the KV heads) and counts query positions from
 without repeating it, and takes two scalars: ``q_offset``, the absolute
 position of query row 0, and ``k_len``, the number of valid keys.  Over
 a prompt (Sq > 1) it takes ``q_offset = 0`` and ``k_len = Sk`` only, and
-computes the TPU kernel's causal function; with Sq = 1, ``q_offset =
-len - 1`` and ``k_len = len`` over a KV cache it computes the
-reference's ``decode_attention``.  A prompt chunk over a cache (Sq > 1
-at an offset) is no served path's and is refused.  The TPU
-kernel's sliding window and logit soft-cap (gemma2) and its non-causal
-form (audio) are left to the slices whose configs use them.
+computes the TPU kernel's causal function, with its sliding ``window``
+when one is given (RecurrentGemma's local attention); with Sq = 1,
+``q_offset = len - 1`` and ``k_len = len`` over a KV cache or a ring
+buffer it computes the reference's ``decode_attention`` without a window.
+A prompt chunk over a cache (Sq > 1 at an offset) and a window in the
+decode form are no served path's and are refused.  The TPU kernel's
+logit soft-cap, gemma2's windowed decode over a linear cache and the
+non-causal form (audio) are left to the slices whose configs use them.
 
 The wrapper takes CUDA tensors only, checks them, allocates the output
 with ``torch.empty``, launches on the current stream and raises if the
@@ -32,8 +35,8 @@ import torch
 from ..build import LAUNCHES, LIBRARIES, check_launch
 
 #: head dims the kernel is instantiated for (smollm / qwen1.5 64,
-#: starcoder2 128); gemma2's 256 comes with its slice
-HEAD_DIMS = (64, 128)
+#: starcoder2 128, recurrentgemma 256)
+HEAD_DIMS = (64, 128, 256)
 #: query heads per KV head that the decode form (Sq = 1) serves in one block
 MAX_DECODE_GROUPS = 16
 _TYPES = (torch.float32, torch.bfloat16)
@@ -43,7 +46,7 @@ _TYPES = (torch.float32, torch.bfloat16)
 def _kernel():
     fn = LIBRARIES.get("attention").flash_attention
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [ptr] * 4 + [i32] * 8 + [ctypes.c_float, i32, ptr]
+    fn.argtypes = [ptr] * 4 + [i32] * 9 + [ctypes.c_float, i32, ptr]
     fn.restype = ctypes.c_int
     return fn
 
@@ -60,19 +63,20 @@ def _check(t: torch.Tensor, name: str, shape: tuple, dtype) -> None:
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    q_offset: int = 0, k_len: int | None = None
-                    ) -> torch.Tensor:
+                    q_offset: int = 0, k_len: int | None = None,
+                    window: int = 0) -> torch.Tensor:
     """q (B, Sq, H, hd); k, v (B, Sk, KV, hd); one dtype, float32 or
     bfloat16, on the card.  Query row i sits at position ``q_offset + i``
-    and sees key j when ``j < k_len`` (default Sk) and ``j <= q_offset +
-    i``; with Sq > 1, ``q_offset`` must be 0 and ``k_len`` Sk.  Returns
-    (B, Sq, H, hd) in q's dtype."""
+    and sees key j when ``j < k_len`` (default Sk), ``j <= q_offset + i``
+    and, with ``window`` > 0, ``q_offset + i - j < window``; with Sq > 1,
+    ``q_offset`` must be 0 and ``k_len`` Sk, with Sq = 1 ``window`` 0.
+    Returns (B, Sq, H, hd) in q's dtype."""
     if q.dim() != 4 or k.dim() != 4:
         raise ValueError("flash_attention takes (B, S, heads, hd) inputs")
     bsz, sq, h, hd = q.shape
     sk, kvh = k.shape[1], k.shape[2]
     k_len = sk if k_len is None else int(k_len)
-    q_offset = int(q_offset)
+    q_offset, window = int(q_offset), int(window)
     if hd not in HEAD_DIMS:
         raise ValueError(f"flash_attention is built for head dims "
                          f"{HEAD_DIMS}, got {hd}")
@@ -88,6 +92,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if sq > 1 and (q_offset, k_len) != (0, sk):
         raise ValueError(f"flash_attention: the prefill form (Sq {sq}) takes "
                          f"q_offset 0 and k_len {sk}, got {q_offset}, {k_len}")
+    if window < 0 or (sq == 1 and window):
+        raise ValueError(f"flash_attention: the decode form takes no window "
+                         f"and a window is >= 0, got {window} at Sq {sq}")
     if sq == 1 and h // kvh > MAX_DECODE_GROUPS:
         raise ValueError(f"flash_attention: the decode form serves at most "
                          f"{MAX_DECODE_GROUPS} query heads per KV head, got "
@@ -98,7 +105,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = torch.empty_like(q)
     rc = _kernel()(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), bsz, sq,
-        sk, h, kvh, hd, q_offset, k_len, hd ** -0.5,
+        sk, h, kvh, hd, q_offset, k_len, window, hd ** -0.5,
         int(q.dtype == torch.bfloat16),
         torch.cuda.current_stream(q.device).cuda_stream)
     check_launch("flash_attention", rc)

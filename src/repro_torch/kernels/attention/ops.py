@@ -1,7 +1,8 @@
 """Dispatch for K4 on the tensor's device: the CUDA kernel for a CUDA
 tensor, the plain version for a CPU tensor, nothing else.  The model's
 attention (``models/attention.py``) calls this once per layer: over the
-prompt in prefill and over the KV cache in every decode step."""
+prompt in prefill (with a window on the hybrid family's local-attention
+layers) and over the KV cache or ring in every decode step."""
 
 import torch
 
@@ -10,13 +11,14 @@ from .ref import attention_ref
 
 
 def gqa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                  q_offset: int = 0, k_len: int | None = None
-                  ) -> torch.Tensor:
+                  q_offset: int = 0, k_len: int | None = None,
+                  window: int = 0) -> torch.Tensor:
     """q (B, Sq, H, hd); k, v (B, Sk, KV, hd).  Returns (B, Sq, H, hd):
     causal attention of query rows at positions ``q_offset + i`` over the
-    first ``k_len`` keys (default all)."""
+    first ``k_len`` keys (default all), within ``window`` keys of each
+    row when it is > 0."""
     if q.is_cuda:
-        return flash_attention(q, k, v, q_offset, k_len)
+        return flash_attention(q, k, v, q_offset, k_len, window)
     if q.device.type == "cpu":
-        return attention_ref(q, k, v, q_offset, k_len)
+        return attention_ref(q, k, v, q_offset, k_len, window)
     raise ValueError(f"no attention path for device {q.device}")

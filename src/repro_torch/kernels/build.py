@@ -26,7 +26,7 @@ BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(__file__)), "_build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 #: kernel sources, one shared library each
-SOURCES = ("dct8", "resize", "mamba_scan", "attention")
+SOURCES = ("dct8", "resize", "mamba_scan", "attention", "rglru")
 
 
 def nvcc_path() -> str:

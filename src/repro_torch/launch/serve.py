@@ -6,15 +6,18 @@ Batched greedy decoding: one prefill over random prompts into a cache of
 steps, each a ``decode_step`` from the cache (recurrent states or KV) and
 an argmax.  Prints the prefill time and the decode rate, as the reference
 does.  Runs on the card unless ``--device cpu``; serves the ssm family
-(Falcon-Mamba) and the dense family (StarCoder2, SmolLM, Qwen1.5) and
-exits with a message for any other arch.  The KV cache takes the weights'
-dtype (``--dtype``).  ``--reduced`` (the default) keeps head_dim 64, a
-head dim K4 is built for, so a reduced dense model runs on the card too.
+(Falcon-Mamba), the dense family (StarCoder2, SmolLM, Qwen1.5) and the
+hybrid family (RecurrentGemma) and exits with a message for any other
+arch.  The KV cache (the hybrid's ring buffers) takes the weights' dtype
+(``--dtype``).  ``--reduced`` (the default) keeps head_dim 64, a head dim
+K4 is built for, so a reduced dense or hybrid model runs on the card too.
 
     python -m repro_torch.launch.serve --arch starcoder2-3b --full \\
         --dtype bfloat16 --batch 4 --prompt-len 2048 --new-tokens 32
-    python -m repro_torch.launch.serve --arch starcoder2-3b --device cpu \\
-        --reduced
+    python -m repro_torch.launch.serve --arch recurrentgemma-9b --full \\
+        --dtype bfloat16 --batch 2 --prompt-len 4096 --new-tokens 32
+    python -m repro_torch.launch.serve --arch recurrentgemma-9b \\
+        --device cpu --reduced
 """
 
 from __future__ import annotations

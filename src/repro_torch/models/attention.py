@@ -1,6 +1,6 @@
 """Grouped-query attention of the port (``src/repro/models/attention.py``):
-the dense family's causal self-attention, over the prompt and over a KV
-cache.
+causal self-attention over the prompt (with a sliding window on the hybrid
+family's local-attention layers) and over a KV cache or ring buffer.
 
 The projections are plain PyTorch matrix products, as they are XLA's in
 the reference; both attention calls go through K4
@@ -10,9 +10,9 @@ its decode form as one softmax; the port's kernel computes both, the
 decode form with the query at position ``cache_len - 1``.  The reference
 scales q and casts p in the input dtype; the port follows the TPU kernel
 (q scaled and p kept in float32), so the two agree to rounding in float32
-and differ by bf16 rounding in bfloat16.  Sliding windows and logit
-soft-caps wait for the gemma2 slice, the bidirectional mask for the audio
-family (ROADMAP §1).
+and differ by bf16 rounding in bfloat16.  Logit soft-caps and gemma2's
+windowed decode over a linear cache wait for the gemma2 slice, the
+bidirectional mask for the audio family (ROADMAP §1).
 """
 
 from __future__ import annotations
@@ -59,11 +59,12 @@ class Attention(nn.Module):
         return apply_rope(q, rope), apply_rope(k, rope), v
 
     @staticmethod
-    def attention(q: torch.Tensor, k: torch.Tensor,
-                  v: torch.Tensor) -> torch.Tensor:
+    def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  window: int = 0) -> torch.Tensor:
         """Causal attention of the sequence over itself (train, prefill):
-        q (B, S, H, hd), k, v (B, S, KV, hd) -> (B, S, H, hd)."""
-        return gqa_attention(q, k, v)
+        q (B, S, H, hd), k, v (B, S, KV, hd) -> (B, S, H, hd); with
+        ``window`` > 0 query i sees keys i - window < j <= i only."""
+        return gqa_attention(q, k, v, window=window)
 
     @staticmethod
     def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
@@ -71,7 +72,9 @@ class Attention(nn.Module):
                          cache_len: int) -> torch.Tensor:
         """One token per row against the cache: q (B, 1, H, hd), caches
         (B, S_max, KV, hd) whose first ``cache_len`` positions are valid,
-        the new token's k/v already written at ``cache_len - 1``."""
+        the new token's k/v already written among them (at ``cache_len -
+        1`` in a linear cache, anywhere in a ring: the softmax does not
+        care where)."""
         return gqa_attention(q, k_cache, v_cache, q_offset=cache_len - 1,
                              k_len=cache_len)
 

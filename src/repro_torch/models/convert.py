@@ -1,6 +1,6 @@
 """Weights carried across from the reference: a ``repro.models``
-parameter tree, as numpy arrays, into the port's ``MambaLM`` or
-``DenseLM``.
+parameter tree, as numpy arrays, into the port's ``MambaLM``, ``DenseLM``
+or ``HybridLM``.
 
 The tree is what ``repro.models.init_params`` returns, converted leaf by
 leaf with ``numpy.asarray``: ``embed``, ``ln_f``, ``lm_head`` (untied
@@ -11,6 +11,10 @@ only) and ``blocks``, whose leaves carry the layers on axis 0.
 * dense: ``blocks/ln1``, ``blocks/ln2`` (L, d),
   ``blocks/attn/{wq, wk, wv, wo}`` and, with qkv bias, ``{bq, bk, bv}``,
   and ``blocks/mlp/{wi, wo}`` plus ``wg`` for the gated MLP.
+* hybrid: two stacked groups, ``blocks/rglru`` (one entry per RG-LRU
+  layer: ``ln1``, ``ln2``, ``rglru/{wx, wy, conv, w_input_gate,
+  w_rec_gate, a_param, wo}``, ``mlp/{wi, wg, wo}``) and ``blocks/attn``
+  (one per local-attention layer, the dense leaves).
 Layouts are the same on both sides, so each leaf is copied as it is;
 bfloat16 leaves (``ml_dtypes``) are reinterpreted bit for bit.
 """
@@ -22,12 +26,15 @@ import torch
 
 from ..device import resolve_device
 from .config import ArchConfig
-from .transformer import DenseLM, MambaLM
+from .layers import GATED
+from .transformer import MODELS
 
 _SSM_LEAVES = ("in_proj", "conv", "x_proj", "dt_proj", "dt_bias", "a_log",
                "d", "out_proj")
 _ATTN_LEAVES = ("wq", "wk", "wv", "wo")
 _BIAS_LEAVES = ("bq", "bk", "bv")
+_RGLRU_LEAVES = ("wx", "wy", "conv", "w_input_gate", "w_rec_gate", "a_param",
+                 "wo")
 
 
 def _tensor(arr) -> torch.Tensor:
@@ -46,29 +53,41 @@ def _copy(dst: torch.nn.Parameter, src, name: str) -> None:
         dst.copy_(t)
 
 
+def _copy_blocks(modules, blocks: dict, mixer: str, cfg: ArchConfig,
+                 path: str) -> None:
+    """Copy a stacked group of the reference's blocks (leaves carrying the
+    layers on axis 0) into the port's blocks, one per layer: ``ln1``, the
+    ``mixer`` leaves and, but for the ssm family, ``ln2`` and the MLP."""
+    leaves = {"ssm": _SSM_LEAVES, "rglru": _RGLRU_LEAVES,
+              "attn": _ATTN_LEAVES + (_BIAS_LEAVES if cfg.qkv_bias else ())}
+    for i, block in enumerate(modules):
+        _copy(block.ln1, blocks["ln1"][i], f"{path}/ln1[{i}]")
+        for name in leaves[mixer]:
+            _copy(getattr(getattr(block, mixer), name),
+                  blocks[mixer][name][i], f"{path}/{mixer}/{name}[{i}]")
+        if mixer == "ssm":  # no FFN: the reference's ln2 is never read
+            continue
+        _copy(block.ln2, blocks["ln2"][i], f"{path}/ln2[{i}]")
+        for name in ("wi", "wo") + (("wg",) if GATED[cfg.act] else ()):
+            _copy(getattr(block.mlp, name), blocks["mlp"][name][i],
+                  f"{path}/mlp/{name}[{i}]")
+
+
 def params_from_numpy(tree: dict, cfg: ArchConfig, device=None):
-    """A ``MambaLM`` (ssm) or ``DenseLM`` (dense) on ``device`` (the card
-    unless the caller asks for the CPU) holding the reference tree's
-    weights, in the tree's projection dtype."""
+    """A ``MambaLM`` (ssm), ``DenseLM`` (dense) or ``HybridLM`` (hybrid) on
+    ``device`` (the card unless the caller asks for the CPU) holding the
+    reference tree's weights, in the tree's projection dtype."""
     dtype = _tensor(tree["embed"]).dtype
     dev = resolve_device(device)
-    model = (MambaLM if cfg.family == "ssm" else DenseLM)(cfg, dtype, dev)
+    model = MODELS[cfg.family](cfg, dtype, dev)
     heads = ("embed", "ln_f") + (() if cfg.tie_embeddings else ("lm_head",))
     for name in heads:
         _copy(getattr(model, name), tree[name], name)
-    blocks = tree["blocks"]
-    for i, block in enumerate(model.blocks):
-        _copy(block.ln1, blocks["ln1"][i], f"blocks/ln1[{i}]")
-        if cfg.family == "ssm":
-            for name in _SSM_LEAVES:
-                _copy(getattr(block.ssm, name), blocks["ssm"][name][i],
-                      f"blocks/ssm/{name}[{i}]")
-            continue
-        _copy(block.ln2, blocks["ln2"][i], f"blocks/ln2[{i}]")
-        for name in _ATTN_LEAVES + (_BIAS_LEAVES if cfg.qkv_bias else ()):
-            _copy(getattr(block.attn, name), blocks["attn"][name][i],
-                  f"blocks/attn/{name}[{i}]")
-        for name in ("wi", "wo") + (("wg",) if cfg.act == "silu" else ()):
-            _copy(getattr(block.mlp, name), blocks["mlp"][name][i],
-                  f"blocks/mlp/{name}[{i}]")
+    if cfg.family == "hybrid":
+        for group in ("rglru", "attn"):
+            _copy_blocks(model.blocks[group], tree["blocks"][group], group,
+                         cfg, f"blocks/{group}")
+    else:
+        _copy_blocks(model.blocks, tree["blocks"],
+                     "ssm" if cfg.family == "ssm" else "attn", cfg, "blocks")
     return model

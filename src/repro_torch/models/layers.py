@@ -1,7 +1,7 @@
 """Shared neural layers of the port (``src/repro/models/layers.py``):
 truncated-normal init, zero-centred RMSNorm, logit soft-capping, RoPE and
-the MLPs of the dense family (SiLU-gated and plain GeLU).  M-RoPE waits
-for the vlm slice and GeGLU for the gemma2 slice (ROADMAP §1)."""
+the MLPs of the dense and hybrid families (SiLU-gated, plain GeLU and
+GeGLU).  M-RoPE waits for the vlm slice (ROADMAP §1)."""
 
 from __future__ import annotations
 
@@ -82,30 +82,35 @@ def apply_rope(x: torch.Tensor, table: tuple[torch.Tensor, torch.Tensor]
 # ---------------------------------------------------------------------------
 # MLP
 
+#: the MLP activations, and which of them gate ``x·wi`` with ``x·wg``
+GATED = {"silu": True, "geglu": True, "gelu": False}
+
+
 class MLP(nn.Module):
-    """The dense family's feed-forward, with the reference's leaves:
-    ``wi`` (d, d_ff) and ``wo`` (d_ff, d), plus the gate ``wg`` (d, d_ff)
-    for ``act="silu"``.  ``silu``: ``wo(silu(x·wg) * x·wi)``; ``gelu``:
-    ``wo(gelu(x·wi))`` with the tanh approximation, which is what
-    ``jax.nn.gelu`` computes by default.  Built empty: ``init_mlp`` draws
-    the weights, ``convert.params_from_numpy`` copies them in."""
+    """The feed-forward of the dense and hybrid families, with the
+    reference's leaves: ``wi`` (d, d_ff) and ``wo`` (d_ff, d), plus the
+    gate ``wg`` (d, d_ff) for the gated activations.  ``silu``:
+    ``wo(silu(x·wg) * x·wi)``; ``geglu``: ``wo(gelu(x·wg) * x·wi)``;
+    ``gelu``: ``wo(gelu(x·wi))``; GeLU with the tanh approximation, which
+    is what ``jax.nn.gelu`` computes by default.  Built empty: ``init_mlp``
+    draws the weights, ``convert.params_from_numpy`` copies them in."""
 
     def __init__(self, d_model: int, d_ff: int, act: str, dtype, device):
         super().__init__()
-        if act not in ("silu", "gelu"):
-            raise NotImplementedError(
-                f"MLP act {act!r}: GeGLU waits for the gemma2 serving slice "
-                f"(L2g)")
+        if act not in GATED:
+            raise ValueError(f"MLP act {act!r}: one of {sorted(GATED)}")
         self.act = act
         self.wi = param((d_model, d_ff), dtype, device)
         self.wo = param((d_ff, d_model), dtype, device)
-        if act == "silu":
+        if GATED[act]:
             self.wg = param((d_model, d_ff), dtype, device)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         h = x @ self.wi
         if self.act == "silu":
             h = F.silu(x @ self.wg) * h
+        elif self.act == "geglu":
+            h = F.gelu(x @ self.wg, approximate="tanh") * h
         else:
             h = F.gelu(h, approximate="tanh")
         return h @ self.wo
@@ -119,7 +124,7 @@ def init_mlp(mlp: MLP, generator: torch.Generator) -> MLP:
     with torch.no_grad():
         for p, scale in ((mlp.wi, d_model ** -0.5), (mlp.wo, d_ff ** -0.5),
                          *(((mlp.wg, d_model ** -0.5),)
-                           if mlp.act == "silu" else ())):
+                           if GATED[mlp.act] else ())):
             p.copy_(truncated_normal(p.shape, scale, p.dtype, generator,
                                      p.device))
     return mlp

@@ -1,13 +1,15 @@
-"""Recurrent sequence mixing of the port (``src/repro/models/recurrent.py``),
-Mamba-1 half: the selective SSM block with its depthwise causal conv.
+"""Recurrent sequence mixing of the port (``src/repro/models/recurrent.py``):
+the Mamba-1 selective SSM block and the RG-LRU block (Griffin /
+RecurrentGemma), each with its depthwise causal conv.
 
-The projections and the conv are plain PyTorch, as they are jnp in the
-reference; the scan -- the reference's ``scan_impl="step"`` body -- goes
-through K5 (``kernels/mamba_scan/ops.py``): the CUDA kernel on the card,
-its plain version on the CPU.  One ``MambaMixer`` call serves both forms:
-the full sequence from a zero state (train, prefill) and one step from a
-carried state (decode).  The RG-LRU half comes with the recurrentgemma
-serving slice.
+The projections, the conv and the gates are plain PyTorch, as they are jnp
+in the reference; the scans go through kernels, the CUDA kernel on the
+card and its plain version on the CPU: Mamba's -- the reference's
+``scan_impl="step"`` body -- through K5 (``kernels/mamba_scan/ops.py``),
+the RG-LRU's ``h_t = a_t·h_{t-1} + b_t`` through K6
+(``kernels/rglru/ops.py``).  One mixer call serves both forms: the full
+sequence from a zero state (train, prefill) and one step from a carried
+state (decode).
 """
 
 from __future__ import annotations
@@ -19,7 +21,11 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..kernels.mamba_scan.ops import selective_scan
+from ..kernels.rglru.ops import lru_scan
 from .layers import param, truncated_normal
+
+#: the RG-LRU's gate constant c in ``log a = -c·r·softplus(a_param)``
+C_RGLRU = 8.0
 
 
 def _causal_conv(x: torch.Tensor, w: torch.Tensor, state=None):
@@ -116,3 +122,74 @@ def mamba_init_state(cfg, batch: int, dtype, device) -> dict:
                                 dtype=dtype, device=device),
             "h": torch.zeros((batch, inner, cfg.ssm.state_dim),
                              dtype=torch.float32, device=device)}
+
+
+class RGLRUMixer(nn.Module):
+    """One RG-LRU block's sequence mixer, with the reference's parameter
+    names and layouts: ``wx``, ``wy`` (d, W), ``conv`` taps (cw, W),
+    ``w_input_gate``, ``w_rec_gate`` (W, W), ``a_param`` (W,) and ``wo``
+    (W, d).  ``a_param`` is float32, the rest take the model's dtype, as in
+    the reference.  Built empty: ``init_rglru`` draws the weights,
+    ``convert.params_from_numpy`` copies them in."""
+
+    def __init__(self, cfg, dtype, device):
+        super().__init__()
+        d = cfg.d_model
+        w = cfg.rglru.lru_width or d
+        self.wx = param((d, w), dtype, device)
+        self.wy = param((d, w), dtype, device)
+        self.conv = param((cfg.rglru.conv_width, w), dtype, device)
+        self.w_input_gate = param((w, w), dtype, device)
+        self.w_rec_gate = param((w, w), dtype, device)
+        self.a_param = param((w,), torch.float32, device)
+        self.wo = param((w, d), dtype, device)
+
+    def forward(self, x: torch.Tensor, state: dict | None = None):
+        """x: (B, S, d).  ``state``: None (a zero state) or dict(conv, h)
+        as ``rglru_init_state`` lays it out.  Returns (out (B, S, d),
+        new_state), the new ``h`` the last row of the scan in float32.
+
+        Types follow the reference step by step: the gates in the
+        activation dtype; ``-c·r`` there too, times the float32
+        ``softplus(a_param)`` in float32; ``a`` and ``b`` in float32, with
+        ``i·xc`` taken in the activation dtype before the cast."""
+        yb = F.gelu(x @ self.wy, approximate="tanh")
+        xc, conv_state = _causal_conv(
+            x @ self.wx, self.conv, None if state is None else state["conv"])
+        r = torch.sigmoid(xc @ self.w_rec_gate)
+        i = torch.sigmoid(xc @ self.w_input_gate)
+        log_a = -C_RGLRU * r * F.softplus(self.a_param)
+        a = torch.exp(log_a.to(torch.float32))
+        b = torch.sqrt(torch.clamp(1.0 - a * a, min=1e-12)) \
+            * (i * xc).to(torch.float32)
+        h = lru_scan(a, b, None if state is None else state["h"])
+        out = (h.to(x.dtype) * yb) @ self.wo
+        return out, {"conv": conv_state, "h": h[:, -1].contiguous()}
+
+
+def init_rglru(mixer: RGLRUMixer, generator: torch.Generator) -> RGLRUMixer:
+    """Draw ``mixer``'s weights in place from ``generator`` with the
+    reference's distributions (``init_rglru`` there): truncated normals at
+    d^-0.5 (``wx``, ``wy``) and W^-0.5 (the rest), and ``a_param`` the
+    softplus inverse of 0.65 on every channel."""
+    d, w = mixer.wx.shape
+    with torch.no_grad():
+        for p, scale in ((mixer.wx, d ** -0.5), (mixer.wy, d ** -0.5),
+                         (mixer.conv, w ** -0.5),
+                         (mixer.w_input_gate, w ** -0.5),
+                         (mixer.w_rec_gate, w ** -0.5),
+                         (mixer.wo, w ** -0.5)):
+            p.copy_(truncated_normal(p.shape, scale, p.dtype, generator,
+                                     p.device))
+        mixer.a_param.copy_(torch.log(torch.expm1(torch.full(
+            (w,), 0.65, dtype=torch.float32, device=mixer.a_param.device))))
+    return mixer
+
+
+def rglru_init_state(cfg, batch: int, dtype, device) -> dict:
+    """A zero decode state: ``conv`` (B, cw-1, W) in the activation dtype,
+    ``h`` (B, W) float32."""
+    w = cfg.rglru.lru_width or cfg.d_model
+    return {"conv": torch.zeros((batch, cfg.rglru.conv_width - 1, w),
+                                dtype=dtype, device=device),
+            "h": torch.zeros((batch, w), dtype=torch.float32, device=device)}

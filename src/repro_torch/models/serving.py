@@ -1,5 +1,5 @@
-"""Serving of the port (``src/repro/models/serving.py``), ssm and dense
-families: prefill + single-token decode with an explicit cache.
+"""Serving of the port (``src/repro/models/serving.py``), ssm, dense and
+hybrid families: prefill + single-token decode with an explicit cache.
 
 * ssm: the cache holds no keys or values: per layer a ``conv`` history
   (B, cw-1, inner) in the activation dtype and the scan state ``h``
@@ -15,8 +15,18 @@ families: prefill + single-token decode with an explicit cache.
   (``_stacked_decode``).  Both launch K4 once per layer.  The caches are
   written in place: the cache a step returns holds the same tensors as
   the one it was given.
+* hybrid (RecurrentGemma): per local-attention layer a **ring buffer** of
+  the window only, k and v (B, w, KV, hd) with ``w = min(window,
+  max_len)`` -- constant memory per sequence -- and per RG-LRU layer a
+  ``conv`` history and the float32 state ``h`` (B, W).  Prefill runs the
+  sequence form from zero states, attends within the window and fills
+  each ring with the prompt's last ``w`` keys in ring order (``pos % w``);
+  ``decode_step`` writes the new token's k/v at ``pos % w`` and attends
+  over the ``min(pos + 1, w)`` keys the ring holds (``_hybrid_decode``),
+  its query roped at the absolute ``pos``.  Both launch K6 once per RG-LRU
+  layer and K4 once per attention layer.  The rings are written in place.
 
-Both caches carry ``len``, the tokens consumed, as a Python int.
+Every cache carries ``len``, the tokens consumed, as a Python int.
 """
 
 from __future__ import annotations
@@ -25,7 +35,7 @@ import torch
 
 from ..device import resolve_device
 from .config import ArchConfig
-from .recurrent import mamba_init_state
+from .recurrent import mamba_init_state, rglru_init_state
 from .transformer import require_served
 
 
@@ -35,19 +45,29 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int,
     the CPU): ``len`` 0 and, for the ssm family, ``rec``, one
     ``mamba_init_state`` per layer (``max_len`` unused, ``dtype`` the
     conv history's); for the dense family ``k`` and ``v``, one
-    (B, max_len, KV, hd) tensor of ``dtype`` per layer."""
+    (B, max_len, KV, hd) tensor of ``dtype`` per layer; for the hybrid
+    family ``k`` and ``v``, one (B, min(window, max_len), KV, hd) ring of
+    ``dtype`` per attention layer, and ``rec``, one ``rglru_init_state``
+    per RG-LRU layer."""
     require_served(cfg)
     dev = resolve_device(device)
+    kinds = [cfg.layer_kind(i) for i in range(cfg.n_layers)]
     if cfg.family == "ssm":
         return {"len": 0,
                 "rec": [mamba_init_state(cfg, batch, dtype, dev)
                         for _ in range(cfg.n_layers)]}
-    shape = (batch, max_len, cfg.n_kv_heads, cfg.resolved_head_dim)
-    return {"len": 0,
-            "k": [torch.zeros(shape, dtype=dtype, device=dev)
-                  for _ in range(cfg.n_layers)],
-            "v": [torch.zeros(shape, dtype=dtype, device=dev)
-                  for _ in range(cfg.n_layers)]}
+    n_attn = sum(k != "rglru" for k in kinds)
+    positions = max_len
+    cache: dict = {"len": 0}
+    if cfg.family == "hybrid":
+        positions = min(cfg.rglru.window, max_len)
+        cache["rec"] = [rglru_init_state(cfg, batch, dtype, dev)
+                        for k in kinds if k == "rglru"]
+    shape = (batch, positions, cfg.n_kv_heads, cfg.resolved_head_dim)
+    for name in ("k", "v"):
+        cache[name] = [torch.zeros(shape, dtype=dtype, device=dev)
+                       for _ in range(n_attn)]
+    return cache
 
 
 @torch.no_grad()
@@ -56,7 +76,10 @@ def prefill(params, cfg: ArchConfig, batch: dict, max_len: int,
     """batch: tokens (B, S).  Returns (logits (B, S, vocab), cache after
     the S tokens).  Dense: the cache holds ``max_len`` positions in the
     model's dtype (K4 takes q, k and v of one dtype); ``cache_dtype``, the
-    reference's argument, may only name that dtype.  Ssm: ``max_len`` and
+    reference's argument, may only name that dtype.  Hybrid: the rings
+    hold ``min(window, max_len)`` positions in the model's dtype (the same
+    rule); the RG-LRU states are the sequence form's final states, as the
+    reference's ``_prefill_recurrent`` returns them.  Ssm: ``max_len`` and
     ``cache_dtype`` are unused; the states take the model's dtype, as the
     reference's ``_prefill_recurrent`` returns them."""
     tokens = batch["tokens"]
@@ -71,6 +94,9 @@ def prefill(params, cfg: ArchConfig, batch: dict, max_len: int,
     if s > max_len:
         raise ValueError(f"prompt of {s} tokens exceeds max_len {max_len}")
     cache = init_cache(cfg, b, max_len, params.dtype, tokens.device)
+    if cfg.family == "hybrid":
+        logits, rec = params.run(tokens, (cache["k"], cache["v"]))
+        return logits, dict(cache, rec=rec, len=s)
     logits = params.run(tokens, (cache["k"], cache["v"]))
     return logits, dict(cache, len=s)
 
@@ -82,5 +108,9 @@ def decode_step(params, cfg: ArchConfig, batch: dict, cache: dict):
     if cfg.family == "ssm":
         logits, rec = params.run(batch["tokens"], cache["rec"])
         return logits[:, 0], {"len": pos + 1, "rec": rec}
+    if cfg.family == "hybrid":
+        logits, rec = params.step(batch["tokens"], (cache["k"], cache["v"]),
+                                  cache["rec"], pos)
+        return logits[:, 0], dict(cache, rec=rec, len=pos + 1)
     logits = params.step(batch["tokens"], (cache["k"], cache["v"]), pos)
     return logits[:, 0], dict(cache, len=pos + 1)

@@ -1,6 +1,6 @@
-"""The port's language model (``src/repro/models/transformer.py``), ssm and
-dense families: ``MambaLM``, ``DenseLM``, ``init_params`` and
-``forward``.
+"""The port's language model (``src/repro/models/transformer.py``), ssm,
+dense and hybrid families: ``MambaLM``, ``DenseLM``, ``HybridLM``,
+``init_params`` and ``forward``.
 
     model  = init_params(cfg, seed, dtype, device)
     logits = forward(model, cfg, batch)                 # train / no-cache
@@ -11,9 +11,13 @@ port keeps one block per layer in a ``ModuleList``.  An ssm block is
 reference's ``ln2``, which it initialises and never reads, has no
 counterpart there.  A dense block is the reference's ``_attn_block``
 without post-norms and ``_ffn`` without MoE: ``x + attn(rms_norm(x,
-ln1))``, then ``x + mlp(rms_norm(x, ln2))``.  The other families, and the
-dense configs with gemma2's features, wait for the slices that bring them
-(ROADMAP §1).
+ln1))``, then ``x + mlp(rms_norm(x, ln2))``.  The hybrid family
+(RecurrentGemma) interleaves RG-LRU blocks (``_rglru_block``: the same
+shape with the RG-LRU mixer in place of attention) with local-attention
+blocks (a dense block with the RG-LRU config's window), kept in the
+reference's two groups and run in the order of ``cfg.layer_kind``.  The
+other families, and the dense configs with gemma2's features, wait for the
+slices that bring them (ROADMAP §1).
 """
 
 from __future__ import annotations
@@ -26,7 +30,7 @@ from .attention import Attention, init_attention
 from .config import ArchConfig
 from .layers import (MLP, init_mlp, param, rms_norm, rope_table, softcap,
                      truncated_normal)
-from .recurrent import MambaMixer, init_mamba
+from .recurrent import MambaMixer, RGLRUMixer, init_mamba, init_rglru
 
 #: the slice that will bring each family not ported yet (ROADMAP §1)
 _WAITING = {
@@ -35,21 +39,19 @@ _WAITING = {
     "audio": "the audio family's slice (K4's non-causal form, the frames "
              "frontend), with the rest of the LM scaffold",
     "moe": "the rest of the LM scaffold (MoE layers)",
-    "hybrid": "the recurrentgemma serving slice L3 (K6 rglru_scan, with "
-              "K4's window)",
 }
-_GEMMA2 = ("the gemma2 serving slice L2g (K4's window and soft-cap, head_dim "
-           "256, post-norms, GeGLU)")
+_GEMMA2 = ("the gemma2 serving slice L2g (K4's soft-cap and windowed decode "
+           "over a linear cache, post-norms, the local/global alternation)")
 
 
 def require_served(cfg: ArchConfig) -> None:
     """Raise ``NotImplementedError`` naming the slice that brings ``cfg``
-    unless the port serves it: the ssm family, and the dense family
-    without gemma2's features."""
-    if cfg.family not in ("ssm", "dense"):
+    unless the port serves it: the ssm and hybrid families, and the dense
+    family without gemma2's features."""
+    if cfg.family not in ("ssm", "dense", "hybrid"):
         raise NotImplementedError(
-            f"{cfg.name}: the port has the ssm and dense families only; the "
-            f"{cfg.family!r} family waits for "
+            f"{cfg.name}: the port has the ssm, dense and hybrid families "
+            f"only; the {cfg.family!r} family waits for "
             f"{_WAITING.get(cfg.family, 'a later slice')}")
     if cfg.frontend != "tokens" or not cfg.causal:
         raise NotImplementedError(
@@ -62,6 +64,11 @@ def require_served(cfg: ArchConfig) -> None:
             or cfg.logit_softcap or cfg.final_softcap or cfg.post_norm
             or cfg.act not in ("silu", "gelu")):
         raise NotImplementedError(f"{cfg.name}: waits for {_GEMMA2}")
+    if cfg.family == "hybrid" and (cfg.logit_softcap or cfg.final_softcap
+                                   or cfg.post_norm):
+        raise NotImplementedError(
+            f"{cfg.name}: the hybrid path has no soft-caps or post-norms; "
+            f"they wait for {_GEMMA2}")
 
 
 def _norm(d: int, device) -> nn.Parameter:
@@ -122,13 +129,16 @@ class MambaLM(nn.Module):
 
 class DenseBlock(nn.Module):
     """``x + attn(rms_norm(x, ln1))``, then ``x + mlp(rms_norm(x, ln2))``.
-    ``forward`` runs the sequence over itself and also returns its roped
-    k and v (for the prefill's cache); ``decode`` runs one token per row
-    over the cache, writing its k/v into it first."""
+    ``forward`` runs the sequence over itself (query i over keys within
+    ``window`` of it when that is > 0: the hybrid family's local
+    attention) and also returns its roped k and v (for the prefill's
+    cache); ``decode`` runs one token per row over the cache, writing its
+    k/v into it first."""
 
-    def __init__(self, cfg: ArchConfig, dtype, device):
+    def __init__(self, cfg: ArchConfig, dtype, device, window: int = 0):
         super().__init__()
         self.eps = cfg.norm_eps
+        self.window = window
         self.ln1 = _norm(cfg.d_model, device)
         self.ln2 = _norm(cfg.d_model, device)
         self.attn = Attention(cfg, dtype, device)
@@ -139,14 +149,19 @@ class DenseBlock(nn.Module):
 
     def forward(self, x: torch.Tensor, rope):
         q, k, v = self.attn.qkv_project(rms_norm(x, self.ln1, self.eps), rope)
-        x = x + self.attn.out_project(self.attn.attention(q, k, v))
+        x = x + self.attn.out_project(self.attn.attention(q, k, v,
+                                                          self.window))
         return self._ffn(x), k, v
 
     def decode(self, x: torch.Tensor, rope, k_cache: torch.Tensor,
-               v_cache: torch.Tensor, pos: int) -> torch.Tensor:
+               v_cache: torch.Tensor, slot: int, k_len: int) -> torch.Tensor:
+        """Writes the token's k/v at ``slot`` and attends over the first
+        ``k_len`` positions: ``(pos, pos + 1)`` in a linear cache, ``(pos %
+        w, min(pos + 1, w))`` in a ring of ``w`` (which holds exactly the
+        last keys the token may see)."""
         q, k, v = self.attn.qkv_project(rms_norm(x, self.ln1, self.eps), rope)
-        write_kv(k_cache, v_cache, k, v, pos)
-        o = self.attn.decode_attention(q, k_cache, v_cache, pos + 1)
+        write_kv(k_cache, v_cache, k, v, slot)
+        o = self.attn.decode_attention(q, k_cache, v_cache, k_len)
         return self._ffn(x + self.attn.out_project(o))
 
 
@@ -163,19 +178,23 @@ def write_kv(k_cache: torch.Tensor, v_cache: torch.Tensor, k: torch.Tensor,
     v_cache[:, start:start + s] = v
 
 
-class DenseLM(nn.Module):
-    """Embedding, ``n_layers`` dense blocks, final norm ``ln_f`` and the
-    head: ``lm_head`` (d, vocab), or with tied embeddings ``embed``
-    transposed, the input then scaled by sqrt(d) in the embedding's dtype
-    as the reference scales it.  Reference layouts, on ``device`` (the
-    card unless the caller asks for the CPU).  Built empty;
-    ``init_params`` or ``convert.params_from_numpy`` fill it."""
+class _TokenLM(nn.Module):
+    """What the dense and hybrid models share: the embedding, final norm
+    ``ln_f`` and the head: ``lm_head`` (d, vocab), or with tied embeddings
+    ``embed`` transposed, the input then scaled by sqrt(d) in the
+    embedding's dtype as the reference scales it; RoPE tables for the
+    attention layers.  Reference layouts, on ``device`` (the card unless
+    the caller asks for the CPU).  Built empty; ``init_params`` or
+    ``convert.params_from_numpy`` fill it."""
 
-    def __init__(self, cfg: ArchConfig, dtype=torch.float32, device=None):
+    family = ""
+
+    def __init__(self, cfg: ArchConfig, dtype, device):
         super().__init__()
         require_served(cfg)
-        if cfg.family != "dense":
-            raise ValueError(f"{cfg.name}: DenseLM takes the dense family")
+        if cfg.family != self.family:
+            raise ValueError(f"{cfg.name}: {type(self).__name__} takes the "
+                             f"{self.family} family")
         device = resolve_device(device)
         self.cfg = cfg
         d, v = cfg.d_model, cfg.vocab_size
@@ -183,8 +202,6 @@ class DenseLM(nn.Module):
         self.ln_f = _norm(d, device)
         if not cfg.tie_embeddings:
             self.lm_head = param((d, v), dtype, device)
-        self.blocks = nn.ModuleList(DenseBlock(cfg, dtype, device)
-                                    for _ in range(cfg.n_layers))
 
     @property
     def dtype(self) -> torch.dtype:
@@ -210,6 +227,19 @@ class DenseLM(nn.Module):
         head = self.embed.T if self.cfg.tie_embeddings else self.lm_head
         return x @ head
 
+
+class DenseLM(_TokenLM):
+    """Embedding, ``n_layers`` dense blocks, final norm and head
+    (``_TokenLM``)."""
+
+    family = "dense"
+
+    def __init__(self, cfg: ArchConfig, dtype=torch.float32, device=None):
+        super().__init__(cfg, dtype, device)
+        self.blocks = nn.ModuleList(
+            DenseBlock(cfg, dtype, self.embed.device)
+            for _ in range(cfg.n_layers))
+
     def run(self, tokens: torch.Tensor, kv: tuple | None = None
             ) -> torch.Tensor:
         """tokens (B, S) at positions [0, S) -> logits (B, S, vocab).  With
@@ -230,21 +260,121 @@ class DenseLM(nn.Module):
         x = self._embed(tokens)
         rope = self._rope_fn(tokens, pos)
         for i, block in enumerate(self.blocks):
-            x = block.decode(x, rope, kv[0][i], kv[1][i], pos)
+            x = block.decode(x, rope, kv[0][i], kv[1][i], pos, pos + 1)
         return self._logits(x)
+
+
+class RGLRUBlock(nn.Module):
+    """``x + RGLRUMixer(rms_norm(x, ln1))``, then ``x + mlp(rms_norm(x,
+    ln2))`` (the reference's ``_rglru_block``); with a state, one decode
+    step (or a prefill from that state).  Returns (x, new state)."""
+
+    def __init__(self, cfg: ArchConfig, dtype, device):
+        super().__init__()
+        self.eps = cfg.norm_eps
+        self.ln1 = _norm(cfg.d_model, device)
+        self.ln2 = _norm(cfg.d_model, device)
+        self.rglru = RGLRUMixer(cfg, dtype, device)
+        self.mlp = MLP(cfg.d_model, cfg.d_ff, cfg.act, dtype, device)
+
+    def forward(self, x: torch.Tensor, state: dict | None = None):
+        out, new_state = self.rglru(rms_norm(x, self.ln1, self.eps), state)
+        x = x + out
+        return x + self.mlp(rms_norm(x, self.ln2, self.eps)), new_state
+
+
+def ring_fill(k_cache: torch.Tensor, v_cache: torch.Tensor, k: torch.Tensor,
+              v: torch.Tensor) -> None:
+    """Write a prompt's k, v (B, S, KV, hd) into ring caches (B, w, KV,
+    hd) in place: the last ``w`` positions ``p`` at slot ``p % w``, as the
+    reference's ``_prefill_recurrent`` fills them.  With S < w, slots S..w-1
+    take position S-1's k/v, as the reference's clipped gather gives them
+    (decode never reads them before overwriting them)."""
+    w, s = k_cache.shape[1], k.shape[1]
+    take = torch.arange(w, device=k.device) + max(s - w, 0)
+    slots, src = take % w, take.clamp(0, s - 1)
+    k_cache[:, slots] = k[:, src]
+    v_cache[:, slots] = v[:, src]
+
+
+class HybridLM(_TokenLM):
+    """Embedding, the RG-LRU and local-attention blocks, final norm and
+    head (``_TokenLM``).  ``blocks["rglru"]`` and ``blocks["attn"]`` hold
+    the two kinds in the reference's stacked grouping; ``order`` lists
+    ``(kind, index in its group)`` layer by layer, in the order of
+    ``cfg.layer_kind``.  The attention blocks attend within
+    ``cfg.rglru.window`` keys."""
+
+    family = "hybrid"
+
+    def __init__(self, cfg: ArchConfig, dtype=torch.float32, device=None):
+        super().__init__(cfg, dtype, device)
+        dev = self.embed.device
+        kinds = [cfg.layer_kind(i) for i in range(cfg.n_layers)]
+        self.order = [("rglru" if k == "rglru" else "attn",
+                       sum(j == k for j in kinds[:i]))
+                      for i, k in enumerate(kinds)]
+        self.blocks = nn.ModuleDict({
+            "rglru": nn.ModuleList(RGLRUBlock(cfg, dtype, dev)
+                                   for k in kinds if k == "rglru"),
+            "attn": nn.ModuleList(DenseBlock(cfg, dtype, dev,
+                                             window=cfg.rglru.window)
+                                  for k in kinds if k != "rglru")})
+
+    def run(self, tokens: torch.Tensor, kv: tuple | None = None):
+        """tokens (B, S) at positions [0, S) from zero states -> (logits
+        (B, S, vocab), the RG-LRU blocks' final states).  With ``kv``
+        (lists of ring k and v caches, one per attention block), each
+        attention block's roped k/v are also written into its ring
+        (``ring_fill``)."""
+        x = self._embed(tokens)
+        rope = self._rope_fn(tokens, 0)
+        states = []
+        for kind, n in self.order:
+            if kind == "rglru":
+                x, st = self.blocks["rglru"][n](x)
+                states.append(st)
+            else:
+                x, k, v = self.blocks["attn"][n](x, rope)
+                if kv is not None:
+                    ring_fill(kv[0][n], kv[1][n], k, v)
+        return self._logits(x), states
+
+    def step(self, tokens: torch.Tensor, kv: tuple, states: list, pos: int):
+        """tokens (B, 1) at position ``pos`` over rings holding the last
+        keys before it and the RG-LRU states after [0, pos) -> (logits
+        (B, 1, vocab), new states); writes the token's k/v at ``pos % w``
+        of each ring of ``w``."""
+        x = self._embed(tokens)
+        rope = self._rope_fn(tokens, pos)
+        new_states = []
+        for kind, n in self.order:
+            if kind == "rglru":
+                x, st = self.blocks["rglru"][n](x, states[n])
+                new_states.append(st)
+            else:
+                w = kv[0][n].shape[1]
+                x = self.blocks["attn"][n].decode(
+                    x, rope, kv[0][n], kv[1][n], pos % w, min(pos + 1, w))
+        return self._logits(x), new_states
+
+
+#: the port's model class of each family it serves
+MODELS = {"ssm": MambaLM, "dense": DenseLM, "hybrid": HybridLM}
 
 
 def init_params(cfg: ArchConfig, seed: int = 0, dtype=torch.float32,
                 device=None):
-    """A ``MambaLM`` (ssm) or ``DenseLM`` (dense) with weights drawn from
-    a ``torch.Generator`` seeded with ``seed`` on ``device`` (the card
-    unless the caller asks for the CPU), with the reference's
-    distributions: embedding N(0, 1) (tied: at scale d^-0.5) and
-    ``lm_head`` at d^-0.5, truncated at 2 sigma; norms and biases zero."""
+    """A ``MambaLM`` (ssm), ``DenseLM`` (dense) or ``HybridLM`` (hybrid)
+    with weights drawn from a ``torch.Generator`` seeded with ``seed`` on
+    ``device`` (the card unless the caller asks for the CPU), with the
+    reference's distributions: embedding N(0, 1) (tied: at scale d^-0.5)
+    and ``lm_head`` at d^-0.5, truncated at 2 sigma; norms and biases
+    zero."""
     require_served(cfg)
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
-    model = (MambaLM if cfg.family == "ssm" else DenseLM)(cfg, dtype, dev)
+    model = MODELS[cfg.family](cfg, dtype, dev)
     emb_scale = cfg.d_model ** -0.5 if cfg.tie_embeddings else 1.0
     with torch.no_grad():
         model.embed.copy_(truncated_normal(model.embed.shape, emb_scale,
@@ -252,10 +382,13 @@ def init_params(cfg: ArchConfig, seed: int = 0, dtype=torch.float32,
         if not cfg.tie_embeddings:
             model.lm_head.copy_(truncated_normal(
                 model.lm_head.shape, cfg.d_model ** -0.5, dtype, gen, dev))
-    for block in model.blocks:
-        if cfg.family == "ssm":
+    for block in model.modules():
+        if isinstance(block, MambaBlock):
             init_mamba(block.ssm, gen)
-        else:
+        elif isinstance(block, RGLRUBlock):
+            init_rglru(block.rglru, gen)
+            init_mlp(block.mlp, gen)
+        elif isinstance(block, DenseBlock):
             init_attention(block.attn, gen)
             init_mlp(block.mlp, gen)
     return model
@@ -263,7 +396,7 @@ def init_params(cfg: ArchConfig, seed: int = 0, dtype=torch.float32,
 
 @torch.no_grad()
 def forward(params, cfg: ArchConfig, batch: dict) -> torch.Tensor:
-    """batch: tokens (B, S).  Returns logits (B, S, vocab), from a zero
-    state (ssm) or without a cache (dense)."""
+    """batch: tokens (B, S).  Returns logits (B, S, vocab), from zero
+    states (ssm, hybrid) and without a cache."""
     out = params.run(batch["tokens"])
-    return out[0] if cfg.family == "ssm" else out
+    return out if cfg.family == "dense" else out[0]

@@ -281,6 +281,68 @@ def test_resize_weights_follow_xla_jit(n_in, n_out):
         assert n_diff == 0
 
 
+def _weights_fused(n_out, n_in, fuse_sample, fuse_tri):
+    """``interp_matrix``'s arithmetic with either of its two multiply-adds
+    fused (one rounding, emulated in float64 where the product is exact):
+    the sample position ``(o + 0.5)·scale - 0.5`` and the triangle
+    ``1 - |d|·r``."""
+    from repro_torch.kernels.resize.resize import _xla_column_sums
+
+    def fma(a, b, c):
+        return (np.asarray(a, np.float64) * np.asarray(b, np.float64)
+                + np.asarray(c, np.float64)).astype(np.float32)
+
+    inv_scale = np.float32(1.0 / (n_out / n_in))
+    r = np.float32(1) / np.float32(max(float(inv_scale), 1.0))
+    o = np.arange(n_out, dtype=np.float32) + np.float32(0.5)
+    sample = fma(o, inv_scale, np.float32(-0.5)) if fuse_sample else \
+        (o * inv_scale).astype(np.float32) - np.float32(0.5)
+    d = np.abs(sample[None, :] - np.arange(n_in, dtype=np.float32)[:, None])
+    w = fma(-d, r, np.float32(1)) if fuse_tri else \
+        np.float32(1) - (d * r).astype(np.float32)
+    w = np.maximum(np.float32(0), w)
+    total = _xla_column_sums(w)
+    ok = np.abs(total) > 1000.0 * np.finfo(np.float32).eps
+    w = np.where(ok, w / np.where(total != 0, total, np.float32(1)),
+                 np.float32(0))
+    w = np.where(((sample >= -0.5) & (sample <= n_in - 0.5))[None, :], w,
+                 np.float32(0))
+    return np.ascontiguousarray(w.T.astype(np.float32))
+
+
+def test_resize_weight_fusions_are_mixed_within_a_pair():
+    """The weights the reference's jitted resize applies, read back with
+    one-hot probes (``_xla_weights``) for every pair of ``WEIGHT_PAIRS``,
+    against the port's arithmetic with each of its two multiply-adds
+    fused or not (four rules).  Prints, per pair, how many weights each
+    rule misses, and for the pairs no rule reproduces, which rule matches
+    each output (u: unfused only, f: the triangle fused only, b: both,
+    n: neither).  Where LLVM contracts a multiply-add into an FMA varies
+    from output to output within one compiled loop, so no rule of the
+    port's reproduces the reference's weights everywhere; the fault is the
+    reference's dependence on its compiler and host (ROADMAP §3).  Only
+    the bound every rule keeps is asserted."""
+    rules = [(0, 0), (0, 1), (1, 0), (1, 1)]
+    unmatched = []
+    for n_in, n_out in WEIGHT_PAIRS:
+        want = _xla_weights(n_in, n_out)
+        got = {rule: _weights_fused(n_out, n_in, *rule) for rule in rules}
+        misses = {rule: int((w != want).sum()) for rule, w in got.items()}
+        print(f"{n_in}->{n_out} ({want.size} weights): misses by rule "
+              f"(fuse sample, fuse triangle) {misses}")
+        for w in got.values():
+            assert float(np.abs(w - want).max()) <= 2e-5
+        if min(misses.values()):
+            unmatched.append((n_in, n_out))
+            u = (got[0, 0] == want).all(axis=1)
+            f = (got[0, 1] == want).all(axis=1)
+            print("  per output: " + "".join(
+                "b" if a and b else "u" if a else "f" if b else "n"
+                for a, b in zip(u, f)))
+    print(f"{len(unmatched)} of {len(WEIGHT_PAIRS)} pairs match no rule: "
+          f"{unmatched}")
+
+
 @pytest.mark.parametrize("stream", ["jackson", "dashcam"])
 def test_fidelity_conversion_within_one_grey_level(stream):
     """``convert_fidelity`` (sampling, crop, K2's resize, round to u8)

@@ -1,15 +1,16 @@
 """The port's CUDA kernels (K1 dct8_dequantize, K2 resize_bilinear,
-K3 dct8_quantize, K4 flash_attention, K5 mamba_scan) against their plain
-PyTorch versions.
+K3 dct8_quantize, K4 flash_attention, K5 mamba_scan, K6 rglru_scan)
+against their plain PyTorch versions.
 
 This file imports neither ``jax`` nor ``repro``, so it also runs on a GPU
 host that has PyTorch but no JAX.  On the CPU it checks what the kernels
 receive (the wrappers refuse CPU tensors, ``ops`` routes them to the plain
-versions, K2's banded taps reproduce the dense weights, K5's plain scan
-carries its state across a split, K4's decode form is a row of its
-prefill form); the tests marked ``cuda`` launch the kernels (and run the
-operators, the reduced Falcon-Mamba and a reduced StarCoder2 on the card)
-and skip without a card:
+versions, K2's banded taps reproduce the dense weights, K5's and K6's
+plain scans carry their state across a split, K4's decode form is a row
+of its prefill form and its window keeps each row's last keys); the tests
+marked ``cuda`` launch the kernels (and run the operators, the reduced
+Falcon-Mamba, a reduced StarCoder2 and a reduced RecurrentGemma on the
+card) and skip without a card:
 ``PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_kernels.py``.
 """
 
@@ -38,6 +39,15 @@ from repro_torch.kernels.mamba_scan.ref import mamba_scan_ref
 from repro_torch.kernels.resize import ops as resize_ops
 from repro_torch.kernels.resize import resize as K2
 from repro_torch.kernels.resize.ref import resize_ref
+from repro_torch.kernels.rglru import ops as lru_ops
+from repro_torch.kernels.rglru import rglru as K6
+from repro_torch.kernels.rglru.ref import rglru_scan_ref
+
+#: K6 vs its plain version, of max(1, max |h|): both round each step once,
+#: but the plain version's float64 step rounds twice on its way to float32
+#: where a float64 sum lands on a float32 tie -- a one-ulp step that decays
+#: with a < 1.  2^-20 leaves room for a few such ulps.
+LRU_TOL = 2 ** -20
 
 # main-path shapes at the 96x160 and 720p specs (SF -> CF grids, NN's
 # pyramid, OCR's plate patch), an upscale, a one-axis resize, identity
@@ -173,8 +183,14 @@ def test_attention_wrapper_refuses_cpu_and_ops_routes_to_plain():
         K4.flash_attention(q, k, v, 1)
     with pytest.raises(ValueError, match="prefill form"):
         K4.flash_attention(q, k, v, k_len=4)
+    with pytest.raises(ValueError, match="no window"):
+        K4.flash_attention(q[:, :1], k, v, 3, 4, window=2)
+    with pytest.raises(ValueError, match="no window"):
+        K4.flash_attention(q, k, v, window=-1)
     assert torch.equal(attn_ops.gqa_attention(q, k, v),
                        attention_ref(q, k, v))
+    assert torch.equal(attn_ops.gqa_attention(q, k, v, window=2),
+                       attention_ref(q, k, v, window=2))
     assert torch.equal(attn_ops.gqa_attention(q[:, :1], k, v, 3, 4),
                        attention_ref(q[:, :1], k, v, 3, 4))
 
@@ -196,25 +212,77 @@ def test_attention_plain_decode_form_is_a_row_of_the_prefill_form(dtype):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attention_plain_window_keeps_each_rows_last_keys(dtype):
+    """With a window, query row t of the prefill form equals the decode
+    form of that row over keys t - window + 1 .. t alone; without one the
+    row differs once it has more keys than the window."""
+    q, k, v = _attn_inputs(2, 40, 40, 4, 1, 16, dtype, seed=8)
+    win = attention_ref(q, k, v, window=12)
+    full = attention_ref(q, k, v)
+    for t in (0, 11, 12, 39):
+        lo = max(0, t - 11)
+        row = attention_ref(q[:, t:t + 1], k[:, lo:t + 1], v[:, lo:t + 1],
+                            q_offset=t - lo, k_len=t + 1 - lo)
+        torch.testing.assert_close(win[:, t:t + 1], row, atol=1e-6, rtol=0)
+    assert torch.equal(win[:, :12], full[:, :12])
+    assert not torch.equal(win[:, 12:], full[:, 12:])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_attention_hold_passes_rounding_and_fails_a_wrong_key_tile(dtype):
     """The rule K4 is held to against its plain version: outputs one bf16
     ulp apart (each element nudged to its neighbour) or a few float32 eps
     of the row apart pass; the same attention with the values of one
     middle 64-key tile zeroed fails, though its error is far below the
-    largest |output|."""
+    largest |output| -- without a window, and with a window of 96 keys
+    (the tile inside the window of rows 128..255)."""
     q, k, v = _attn_inputs(2, 256, 256, 4, 2, 64, dtype, seed=6)
-    want = attention_ref(q, k, v)
-    if dtype == torch.bfloat16:
-        near = (want.view(torch.int16) + 1).view(torch.bfloat16)
-    else:
-        rms = want.square().mean(dim=-1, keepdim=True).sqrt()
-        near = want + 8 * torch.finfo(dtype).eps * rms
-    assert not torch.equal(near, want) and hold_ratio(near, want) <= 1
     v_bad = v.clone()
     v_bad[:, 128:192] = 0
-    bad = attention_ref(q, k, v_bad)
-    assert float((bad - want).abs().max()) < 0.5 * float(want.abs().max())
-    assert hold_ratio(bad, want) > 1
+    for window in (0, 96):
+        want = attention_ref(q, k, v, window=window)
+        if dtype == torch.bfloat16:
+            near = (want.view(torch.int16) + 1).view(torch.bfloat16)
+        else:
+            rms = want.square().mean(dim=-1, keepdim=True).sqrt()
+            near = want + 8 * torch.finfo(dtype).eps * rms
+        assert not torch.equal(near, want) and hold_ratio(near, want) <= 1
+        bad = attention_ref(q, k, v_bad, window=window)
+        assert float((bad - want).abs().max()) < \
+            0.5 * float(want.abs().max())
+        assert hold_ratio(bad, want) > 1, window
+
+
+def test_rglru_scan_wrapper_refuses_cpu_and_ops_routes_to_plain():
+    """K6's wrapper never falls back: CPU tensors and types other than
+    float32 are refused; ``ops`` sends CPU tensors to the plain scan."""
+    g = torch.Generator().manual_seed(0)
+    a = torch.rand((2, 5, 12), generator=g)
+    b = torch.randn((2, 5, 12), generator=g)
+    h0 = torch.randn((2, 12), generator=g)
+    with pytest.raises(ValueError, match="CUDA"):
+        K6.rglru_scan(a, b, h0)
+    with pytest.raises(ValueError, match="CUDA"):
+        K6.rglru_scan(a.double(), b)
+    h = lru_ops.lru_scan(a, b, h0)
+    assert h.dtype == torch.float32
+    assert torch.equal(h, rglru_scan_ref(a, b, h0))
+
+
+def test_rglru_plain_scan_carries_state_and_starts_from_zero():
+    """Scanning S steps equals scanning a prefix and the rest from its
+    last row (the prefill/decode hand-off), and an absent initial state
+    equals a zero one."""
+    g = torch.Generator().manual_seed(2)
+    a, b = torch.rand((3, 9, 20), generator=g), torch.randn((3, 9, 20),
+                                                             generator=g)
+    h0 = torch.randn((3, 20), generator=g)
+    h = rglru_scan_ref(a, b, h0)
+    h1 = rglru_scan_ref(a[:, :4], b[:, :4], h0)
+    h2 = rglru_scan_ref(a[:, 4:], b[:, 4:], h1[:, -1])
+    assert torch.equal(torch.cat([h1, h2], dim=1), h)
+    assert torch.equal(rglru_scan_ref(a, b),
+                       rglru_scan_ref(a, b, torch.zeros_like(h0)))
 
 
 # ---------------------------------------------------------------------------
@@ -423,4 +491,94 @@ def test_reduced_starcoder2_on_card_matches_plain_path(cuda):
     assert toks.cpu().tolist() == want.tolist()
     got = prefill(model, cfg, {"tokens": prompts.to(cuda)}, 12)[0]
     ref = prefill(model_cpu, cfg, {"tokens": prompts}, 12)[0]
+    assert float((got.cpu() - ref).abs().max()) <= 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s", [1, 15, 16, 300])
+@pytest.mark.parametrize("w", [64, 200, 4096])
+@pytest.mark.parametrize("with_h0", [False, True])
+def test_rglru_scan_kernel_matches_plain_on_card(cuda, s, w, with_h0):
+    """K6 against its plain version on the same card inputs: both round
+    each step once (``fmaf`` there, a float64 step rounded to float32
+    here), so h agrees within ``LRU_TOL`` of its largest value; lengths
+    on both sides of the kernel's 16-step chunk, widths not a multiple of
+    its 64-column block."""
+    g = torch.Generator(device=cuda).manual_seed(s + w)
+    a = torch.sigmoid(torch.randn((2, s, w), generator=g, device=cuda))
+    b = torch.randn((2, s, w), generator=g, device=cuda)
+    h0 = torch.randn((2, w), generator=g, device=cuda) if with_h0 else None
+    LAUNCHES.reset()
+    got = K6.rglru_scan(a, b, h0)
+    torch.cuda.synchronize()
+    assert LAUNCHES.snapshot() == {"rglru_scan": 1}
+    want = rglru_scan_ref(a, b, h0)
+    scale = max(1.0, float(want.abs().max()))
+    assert float((got - want).abs().max()) <= LRU_TOL * scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd,h,kvh", [(64, 4, 2), (256, 16, 1)])
+@pytest.mark.parametrize("sq,window", [(130, 16), (300, 64), (300, 100),
+                                       (700, 256), (300, 400)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_window_matches_plain_on_card(cuda, hd, h, kvh, sq,
+                                                      window, dtype):
+    """K4's prefill form with a window against its plain version, element
+    by element within ``ref.HOLD``: windows inside one 64-key tile, across
+    tiles, not a multiple of 64, and wider than the sequence; head_dim 256
+    at RecurrentGemma's 16 query heads over 1 KV head."""
+    q, k, v = _attn_inputs(2, sq, sq, h, kvh, hd, dtype, seed=sq + window,
+                           device=cuda)
+    LAUNCHES.reset()
+    got = K4.flash_attention(q, k, v, window=window)
+    torch.cuda.synchronize()
+    assert LAUNCHES.snapshot() == {"flash_attention": 1}
+    want = attention_ref(q, k, v, window=window)
+    assert hold_ratio(got, want) <= 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cache_len", [1, 255, 256, 700])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_hd256_decode_form_matches_plain_on_card(
+        cuda, cache_len, dtype):
+    """K4's decode form at head_dim 256 with 16 query heads over 1 KV head
+    (RecurrentGemma's ring), within ``ref.HOLD``; its causal prefill form
+    at head_dim 256 too."""
+    q, k, v = _attn_inputs(2, 1, 700, 16, 1, 256, dtype, seed=cache_len,
+                           device=cuda)
+    got = K4.flash_attention(q, k, v, cache_len - 1, cache_len)
+    assert hold_ratio(got, attention_ref(q, k, v, cache_len - 1,
+                                         cache_len)) <= 1
+    q, k, v = _attn_inputs(1, 130, 130, 16, 1, 256, dtype, seed=1,
+                           device=cuda)
+    assert hold_ratio(K4.flash_attention(q, k, v),
+                      attention_ref(q, k, v)) <= 1
+
+
+@pytest.mark.cuda
+def test_reduced_recurrentgemma_on_card_matches_plain_path(cuda):
+    """A reduced RecurrentGemma at head_dim 64 (d 256, window 32): prefill
+    past the window and decode steps that wrap the ring on the card (K6
+    once per RG-LRU layer, K4 once per attention layer, per prefill and
+    per step) give the CPU plain path's logits within 1e-4, and the same
+    greedy tokens."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import init_params, prefill
+
+    cfg = get_config("recurrentgemma-9b").reduced(n_layers=4, d_model=256)
+    model_cpu = init_params(cfg, seed=0, device="cpu")
+    model = init_params(cfg, seed=0, device="cpu").to(cuda)
+    prompts = torch.randint(0, cfg.vocab_size, (2, 40),
+                            generator=torch.Generator().manual_seed(1))
+    LAUNCHES.reset()
+    toks, _, _ = generate(model, cfg, prompts.to(cuda), 5)
+    assert LAUNCHES.snapshot() == {"rglru_scan": 3 * 5,
+                                   "flash_attention": 1 * 5}
+    want, _, _ = generate(model_cpu, cfg, prompts, 5)
+    assert toks.cpu().tolist() == want.tolist()
+    got = prefill(model, cfg, {"tokens": prompts.to(cuda)}, 45)[0]
+    ref = prefill(model_cpu, cfg, {"tokens": prompts}, 45)[0]
     assert float((got.cpu() - ref).abs().max()) <= 1e-4
