@@ -1,11 +1,11 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one card.
 
-Four paths, each through the entry points a user calls, each with the
+Five paths, each through the entry points a user calls, each with the
 launch counters zeroed just before it and read just after: the video path
 (below), the serving phase (Falcon-Mamba-7B), the dense serving phase
-(StarCoder2-3B) and the hybrid serving phase (RecurrentGemma-9B), further
-below.
+(StarCoder2-3B), the hybrid serving phase (RecurrentGemma-9B) and the
+audio phase (HuBERT-XLarge's encoder), further below.
 
 Drives the port's main path at the paper's 720p30 through the entry points
 a user calls: ``VideoStore.ingest_segment`` writes 4 segments of
@@ -98,15 +98,34 @@ over a full ring, element by element within ``ref.HOLD``, in bf16 and in
 f32.  K4 with the window is timed beside ``F.scaled_dot_product_attention``
 with an explicit banded mask; no single PyTorch call computes K6.
 
+The audio phase encodes with ``hubert-xlarge`` at its published width and
+depth (48 layers, d_model 1280, 16 heads over 16 of head_dim 80, GeLU d_ff
+5120, 504 cluster targets, bidirectional attention) with bf16 weights
+drawn from a seed on the card: ``models.forward`` over a batch of 8 random
+clips of 1,499 frame embeddings each -- 30 s of 16-kHz audio through
+HuBERT's convolutional frontend (stride 320), which the reference stubs
+with precomputed embeddings -- once untimed, then 3 timed forwards.  K4's
+non-causal form must launch 48 times a forward and its causal form never.
+A profiled forward reports the busy share and K4's share of the card
+time.  Then, with f32 weights and 2 clips, it holds the kernel route
+against the same model with K4's plain version bound in its place (1e-3
+of the largest |logit|), and K4 against its plain version at the phase's
+shape (8, 1499, 16, 80), element by element within ``ref.HOLD``, in bf16
+and f32; the causal plain version and the plain version with keys
+1472..1498 (the last, partial key tile) zeroed must fail that hold.  K4 is
+timed beside ``F.scaled_dot_product_attention(is_causal=False)``.
+
 Prints the queries' x-realtime, each serving phase's prefill time and
-decode rate, a ``{"kernels": [...]}`` line, the card's name and power
-limit, and last ``{"ok": true, "device": {...}}``.  Exits
+decode rate, the audio phase's encode time, a ``{"kernels": [...]}`` line,
+the card's name and power limit, and last ``{"ok": true, "device":
+{...}}``.  Exits
 non-zero without that last line when there is no CUDA card or a check
 fails.  Run from the repository root: ``python3 chip_smoke.py``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import shutil
@@ -149,6 +168,12 @@ HYBRID_HOLD_PROMPT, HYBRID_HOLD_DECODE = 2088, 8  # 2080 prefilled, > window
 # K6 vs its plain version, of max(1, max |h|): both round each step once;
 # the plain version's float64 step may land one ulp off at a float32 tie
 LRU_TOL = 2 ** -20
+# the audio phase: HuBERT-XLarge's encoder at full width, bf16 weights;
+# 30-s clips of 16-kHz audio are 1,499 frames after the conv frontend
+# (receptive field 400 samples, stride 320)
+AUDIO_ARCH = "hubert-xlarge"
+AUDIO_BATCH, AUDIO_FRAMES, AUDIO_CLIP_S = 8, 1499, 30.0
+AUDIO_TIMED, AUDIO_HOLD_BATCH = 3, 2
 
 
 def card_line() -> str:
@@ -320,8 +345,9 @@ def scan_inputs(torch, bsz, s, inner, n, x_dtype, dev, seed, with_h0=False):
 def device_time(torch, fn) -> tuple[float, int, list]:
     """Runs ``fn()`` once under ``torch.profiler``; returns the time the
     card was busy with kernels, in ms (the union of the kernels'
-    intervals), the number of kernels, and the six costliest kernels as
-    (name, ms, launches).  (0.0, 0, []) when the trace holds no kernel."""
+    intervals), the number of kernels, and every kernel name as (name, ms,
+    launches), costliest first.  (0.0, 0, []) when the trace holds no
+    kernel."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -344,9 +370,9 @@ def device_time(torch, fn) -> tuple[float, int, list]:
         row = by_name.setdefault(e.name, [0.0, 0])
         row[0] += (e.time_range.end - e.time_range.start) / 1e3
         row[1] += 1
-    top = sorted(((n, ms, c) for n, (ms, c) in by_name.items()),
-                 key=lambda r: -r[1])[:6]
-    return busy / 1e3, len(kernels), top
+    rows = sorted(((n, ms, c) for n, (ms, c) in by_name.items()),
+                  key=lambda r: -r[1])
+    return busy / 1e3, len(kernels), rows
 
 
 def rel_err(torch, got, want) -> float:
@@ -418,8 +444,22 @@ def profile_serve(torch, model, cfg, prompts, toks, t_prefill, t_decode):
                  if busy else "not measured (no device time in the trace)")
         print(f"serve profile {cfg.name}, {what}: {count} kernels, "
               f"{busy:.1f} ms on the card, {share}; top: " + "; ".join(
-                  f"{name[:60]} {ms:.1f} ms x{n}" for name, ms, n in top),
+                  f"{name[:60]} {ms:.1f} ms x{n}" for name, ms, n in top[:6]),
               flush=True)
+
+
+@contextlib.contextmanager
+def plain_versions(plains):
+    """Within the block, each ``module.name`` of ``plains`` (module, name,
+    plain) is bound to its plain version, which runs on the card."""
+    kernels = [getattr(module, name) for module, name, _ in plains]
+    for module, name, plain in plains:
+        setattr(module, name, plain)
+    try:
+        yield
+    finally:
+        for (module, name, _), kernel in zip(plains, kernels):
+            setattr(module, name, kernel)
 
 
 def hold_serve(torch, check, model, cfg, hold, n_decode, plains):
@@ -450,15 +490,9 @@ def hold_serve(torch, check, model, cfg, hold, n_decode, plains):
           f"max |d| {max(errs):.3g} of the largest |logit| "
           f"({float(full.abs().max()):.3g})")
     toks_k, _, _ = generate(model, cfg, hold, HOLD_NEW)
-    kernels = [getattr(module, name) for module, name, _ in plains]
-    for module, name, plain in plains:
-        setattr(module, name, plain)  # the plain version, on the card
-    try:
+    with plain_versions(plains):
         full_p = forward(model, cfg, {"tokens": hold})
         toks_p, _, _ = generate(model, cfg, hold, HOLD_NEW)
-    finally:
-        for (module, name, _), kernel in zip(plains, kernels):
-            setattr(module, name, kernel)
     err = rel_err(torch, full, full_p)
     check(err <= LOGIT_TOL and torch.equal(toks_k, toks_p),
           f"hold {cfg.name}: kernel route vs plain version on the card, f32, "
@@ -861,6 +895,168 @@ def hybrid_serving_phase(torch, check, cfg, dev) -> list[dict]:
     return [k6_row, k4_row]
 
 
+def audio_phase(torch, check, cfg, dev) -> dict:
+    """``cfg`` (HuBERT-XLarge) encodes on ``dev``: the timed forwards,
+    counted and profiled, the kernel route held against K4's plain version,
+    and K4's non-causal form held, its mutants refused, and timed against
+    its plain version and ``F.scaled_dot_product_attention``.  Returns its
+    ``kernels`` row."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import build
+    from repro_torch.kernels.attention.attention import (NONCAUSAL,
+                                                         flash_attention)
+    from repro_torch.kernels.attention.ref import (HOLD, attention_ref,
+                                                   hold_ratio)
+    from repro_torch.models import attention, forward, init_params
+
+    hd, h = cfg.resolved_head_dim, cfg.n_heads
+    print(f"audio: {cfg.name}, {cfg.n_layers} layers, d_model {cfg.d_model}, "
+          f"{h} heads over {cfg.n_kv_heads} KV heads of {hd}, non-causal, "
+          f"{cfg.act} d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, "
+          f"{cfg.param_count() / 1e9:.3f} B params", flush=True)
+    t0 = time.perf_counter()
+    model = init_params(cfg, SERVE_SEED, torch.bfloat16, dev)
+    torch.cuda.synchronize()
+    weight_bytes = sum(p.numel() * p.element_size()
+                       for p in model.parameters())
+    print(f"audio: bf16 weights drawn on the card in "
+          f"{time.perf_counter() - t0:.1f} s, {weight_bytes / 1e9:.3f} GB",
+          flush=True)
+    gen = torch.Generator(device=dev).manual_seed(SERVE_SEED + 1)
+    frames = torch.randn((AUDIO_BATCH, AUDIO_FRAMES, cfg.d_model),
+                         generator=gen, device=dev).to(torch.bfloat16)
+
+    # -- the timed forwards, counted, and a profile ------------------------
+    def encode():
+        return forward(model, cfg, {"embeds": frames})
+
+    encode()  # warm-up, not counted
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    build.LAUNCHES.reset()
+    t0 = time.perf_counter()
+    for _ in range(AUDIO_TIMED):
+        logits = encode()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) / AUDIO_TIMED
+    launches = build.LAUNCHES.snapshot()
+    audio_s = AUDIO_BATCH * AUDIO_CLIP_S
+    print(f"audio {cfg.name}: encode {AUDIO_BATCH}x{AUDIO_FRAMES} frames "
+          f"({audio_s:.0f} s of audio) in {wall * 1e3:.1f} ms a forward "
+          f"(mean of {AUDIO_TIMED}), {audio_s / wall:.1f} s of audio per "
+          f"wall second; peak {torch.cuda.max_memory_allocated() / 1e9:.2f} "
+          f"GB; launches {launches}", flush=True)
+    want = cfg.n_layers * AUDIO_TIMED
+    check(launches.get(NONCAUSAL, 0) == want
+          and launches.get("flash_attention", 0) == 0,
+          f"audio {cfg.name}: K4's non-causal form launched "
+          f"{launches.get(NONCAUSAL, 0)} times in {AUDIO_TIMED} forwards "
+          f"({cfg.n_layers} a forward, {want} expected), its causal form "
+          f"{launches.get('flash_attention', 0)} times (0 expected)")
+    check(tuple(logits.shape) == (AUDIO_BATCH, AUDIO_FRAMES, cfg.vocab_size)
+          and logits.dtype == torch.bfloat16
+          and bool(torch.isfinite(logits).all()),
+          f"audio {cfg.name}: logits {tuple(logits.shape)} "
+          f"{str(logits.dtype)[6:]}, finite")
+    busy, count, by_name = device_time(torch, encode)
+    k4_ms = sum(ms for name, ms, _ in by_name if "prefill_kernel" in name)
+    share = (f"{busy / (wall * 1e3):.1%} of the timed forward's "
+             f"{wall * 1e3:.1f} ms; K4 {k4_ms:.1f} ms, "
+             f"{k4_ms / busy:.1%} of the card time" if busy
+             else "not measured (no device time in the trace)")
+    print(f"audio profile {cfg.name}, one forward: {count} kernels, "
+          f"{busy:.1f} ms on the card, {share}; top: " + "; ".join(
+              f"{name[:60]} {ms:.1f} ms x{n}" for name, ms, n in by_name[:6]),
+          flush=True)
+    del model, logits
+    free_card(torch)
+
+    # -- hold on the card: f32 weights, 2 clips ----------------------------
+    model = init_params(cfg, SERVE_SEED, torch.float32, dev)
+    x = frames[:AUDIO_HOLD_BATCH].float()
+    full = forward(model, cfg, {"embeds": x})
+    with plain_versions([(attention, "gqa_attention", attention_ref)]):
+        full_p = forward(model, cfg, {"embeds": x})
+    err = rel_err(torch, full, full_p)
+    check(bool(torch.isfinite(full).all()) and tuple(full.shape) == (
+              AUDIO_HOLD_BATCH, AUDIO_FRAMES, cfg.vocab_size)
+          and err <= LOGIT_TOL,
+          f"hold {cfg.name}: kernel route vs plain version on the card, f32, "
+          f"logits {tuple(full.shape)} finite, max |d| {err:.3g} of the "
+          f"largest |logit| ({float(full.abs().max()):.3g})")
+    del model, x, full, full_p
+    free_card(torch)
+
+    # -- K4's non-causal form against its plain version, and two mutants ----
+    b, s = AUDIO_BATCH, AUDIO_FRAMES
+    lo = (s - 1) // 64 * 64  # the last, partial key tile: keys lo..s-1
+    errs = {}
+    for seed, dtype in enumerate((torch.bfloat16, torch.float32)):
+        q, k, v = attention_inputs(torch, dev, b, s, s, h, cfg.n_kv_heads,
+                                   hd, seed + 20, dtype)
+        got = flash_attention(q, k, v, causal=False)
+        want = attention_ref(q, k, v, causal=False)
+        ratio = hold_ratio(got, want)
+        errs[dtype] = float((got.float() - want.float()).abs().max())
+        u, r = HOLD[dtype]
+        check(ratio <= 1,
+              f"K4 flash_attention vs plain, non-causal: q {tuple(q.shape)}, "
+              f"k/v {tuple(k.shape)} {str(dtype)[6:]}, max |d| "
+              f"{errs[dtype]:.3g}, at most {ratio:.3g} of the bound "
+              f"{u:.3g}·|want| + {r:.3g}·rms(row)")
+        bad = hold_ratio(attention_ref(q, k, v), want)
+        check(bad > 1, f"K4 hold, non-causal {str(dtype)[6:]}: the causal "
+              f"plain version stands at {bad:.3g} of the bound, so it fails")
+        k0, v0 = k.clone(), v.clone()
+        k0[:, lo:] = 0
+        v0[:, lo:] = 0
+        bad = hold_ratio(attention_ref(q, k0, v0, causal=False), want)
+        check(bad > 1, f"K4 hold, non-causal {str(dtype)[6:]}: the plain "
+              f"version with keys {lo}..{s - 1} zeroed stands at {bad:.3g} "
+              f"of the bound, so it fails")
+        del got, want, k0, v0
+        if dtype == torch.bfloat16:
+            case = (q, k, v)
+        del q, k, v
+    free_card(torch)
+    q, k, v = case
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+
+    def library():
+        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=False)
+
+    lib_err = float((library().transpose(1, 2).float() - attention_ref(
+        q, k, v, causal=False).float()).abs().max())
+    pairs = b * h * s * s  # every (q, k) pair is kept
+    flops = 4 * hd * pairs
+    nbytes = 2 * (q.numel() + k.numel()) * q.element_size()  # q, o; k, v
+    clock = max_sm_clock_hz()
+    t_ops, t_bytes = flops / PEAK_BF16_FLOP_S, nbytes / PEAK_BYTES_S
+    t_sfu = pairs / (SFU_PER_SM_CLOCK * SMS * clock)
+    print(f"K4 bound at q {tuple(q.shape)}, k/v {tuple(k.shape)} bf16, "
+          f"non-causal: {pairs:.4g} (q, k) pairs x 4·{hd} = "
+          f"{flops / 1e9:.1f} GFLOP -> {t_ops * 1e3:.4f} ms at 989 TFLOP/s "
+          f"bf16 ({flops / PEAK_FP32_FLOP_S * 1e3:.3f} ms at 67 TFLOP/s "
+          f"fp32); {nbytes / 1e6:.1f} MB -> {t_bytes * 1e3:.4f} ms; "
+          f"{pairs:.4g} exp on the SFUs at {clock / 1e9:.3f} GHz -> "
+          f"{t_sfu * 1e3:.4f} ms.  SDPA vs plain: max |d| {lib_err:.3g}",
+          flush=True)
+    return {"name": f"flash_attention (non-causal, head_dim {hd})",
+            "route": "cuda", "source": "src/repro_torch/csrc/attention.cu",
+            "replaces": "src/repro/kernels/attention/attention.py:80",
+            "launches": launches.get(NONCAUSAL, 0),
+            "max_abs_err": max(errs.values()),
+            "ms": time_ms(torch, lambda: flash_attention(
+                q, k, v, causal=False), 10),
+            "plain_ms": time_ms(torch, lambda: attention_ref(
+                q, k, v, causal=False), 2),
+            "bound_ms": max(t_ops, t_bytes, t_sfu) * 1e3,
+            "bound_by": "bytes" if t_bytes >= max(t_ops, t_sfu)
+            else "operations",
+            "library_ms": time_ms(torch, library, 10)}
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -905,9 +1101,13 @@ def main() -> int:
     reports = build.compile_all()
     print(f"build: {time.perf_counter() - t0:.1f} s", flush=True)
     for name, log in reports.items():
+        entry = ""
         for line in log.splitlines():
-            if "registers" in line:
-                print(f"ptxas {name}: {line.split(':', 1)[-1].strip()}")
+            if "entry function" in line:
+                entry = line.split("'")[1] if "'" in line else ""
+            elif "registers" in line or "spill" in line:
+                print(f"ptxas {name} {entry[:72]}: "
+                      f"{line.split(':', 1)[-1].strip()}")
 
     spec = IngestSpec(height=720, width=1280, fps=30, segment_seconds=4)
     cfg = smoke_config()
@@ -1121,8 +1321,13 @@ def main() -> int:
     t0 = time.perf_counter()
     rows.extend(hybrid_serving_phase(torch, check, get_config(HYBRID_ARCH),
                                      dev))
-    print(f"hybrid serving phase: {time.perf_counter() - t0:.1f} s; whole "
-          f"run {time.perf_counter() - t_start:.1f} s", flush=True)
+    print(f"hybrid serving phase: {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    free_card(torch)
+    t0 = time.perf_counter()
+    rows.append(audio_phase(torch, check, get_config(AUDIO_ARCH), dev))
+    print(f"audio phase: {time.perf_counter() - t0:.1f} s; whole run "
+          f"{time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
 
     if failures:

@@ -1,14 +1,17 @@
-// Hopper kernel for causal grouped-query flash attention, over a prompt (with
-// an optional sliding window) and over a KV cache.
+// Hopper kernel for grouped-query flash attention: causal over a prompt
+// (with an optional sliding window) and over a KV cache, or non-causal over
+// a whole sequence (an encoder).
 //
 // K4  flash_attention  q (B, Sq, H, hd); k, v (B, Sk, KV, hd); one dtype,
-//                      f32 or bf16; hd 64, 128 or 256; scalars q_offset,
-//                      k_len, window -> o (B, Sq, H, hd) in q's dtype
+//                      f32 or bf16; hd 64, 80 (prefill form only), 128 or
+//                      256; scalars q_offset, k_len, window, causal ->
+//                      o (B, Sq, H, hd) in q's dtype
 //     o[b, i, h] = Σ_j softmax_j(s_ij) · v[b, j, h / (H/KV)]
 //     s_ij = (q[b, i, h] · hd^-0.5) · k[b, j, h / (H/KV)], kept where
-//     j < k_len and j <= q_offset + i and (window = 0 or q_offset + i - j <
-//     window), else -1e30 (q_offset 0 and k_len Sk when Sq > 1; window 0
-//     when Sq = 1).
+//     j < k_len and, when causal, j <= q_offset + i and (window = 0 or
+//     q_offset + i - j < window), else -1e30 (q_offset 0 and k_len Sk when
+//     Sq > 1; window 0 when Sq = 1; non-causal: Sq > 1, q_offset 0, k_len
+//     Sk and window 0, so j < Sk is the only mask).
 //     Replaces the TPU kernel src/repro/kernels/attention/attention.py::
 //     flash_attention (_attn_kernel), which takes (B, H, S, hd) with the KV
 //     heads repeated by its wrapper and counts query positions from 0.  This
@@ -16,19 +19,22 @@
 //     without repeating it, and has two forms.  The prefill form (Sq > 1)
 //     takes q_offset 0 and k_len Sk only: the TPU kernel's causal function,
 //     with its sliding window when window > 0 (the mask of
-//     src/repro/models/attention.py::_block_mask).
+//     src/repro/models/attention.py::_block_mask), or its non-causal
+//     function (causal 0: the audio family's encoder, HuBERT).
 //     The decode form (Sq 1) takes the absolute position of its query
 //     (q_offset len-1) and the valid key count (k_len len) over a cache: the
 //     reference's decode_attention (src/repro/models/attention.py).  A
 //     prompt chunk over a cache (a prefill form with q_offset > 0) is no
 //     served path's and is refused, and so is a window in the decode form:
 //     the hybrid family's ring buffer holds exactly the keys its query sees.
+//     The non-causal form takes neither a window, an offset nor Sq 1, and
+//     hd 80 has no decode form: no path uses them.
 //     Called by repro_torch/models/attention.py once per layer: in prefill
 //     over the prompt (with RecurrentGemma's window on its local-attention
-//     layers), in every decode step over the cache or the ring.  The TPU
-//     kernel's logit soft-cap and gemma2's windowed decode over a linear
-//     cache (L2g), and its non-causal form (audio), are left to the slices
-//     whose configs use them.
+//     layers), in every decode step over the cache or the ring, and in the
+//     encoder's forward over the frames (non-causal).  The TPU kernel's
+//     logit soft-cap and gemma2's windowed decode over a linear cache are
+//     left to the gemma2 slice (L2g).
 //
 //     As in the TPU kernel: q is scaled in f32 before the product, scores,
 //     the running max and sum and the accumulator are f32, masked scores are
@@ -46,7 +52,10 @@
 // 6.29e6 pairs, 2.01e8 in all, 206 GFLOP at 4·256 a pair, 0.208 ms at
 // 989 TFLOP/s; about 142 MB, 0.042 ms; the exps 0.048 ms.  The operations
 // bound it.  Its decode form over a full ring (B 2, 2048 keys) reads about
-// 4.2 MB, 1.3 us.
+// 4.2 MB, 1.3 us.  At HuBERT-XLarge's encoder shape (B 8, S 1499, H 16 over
+// KV 16, hd 80, bf16, non-causal): 8·16·1499² = 2.876e8 pairs, 92.0 GFLOP at
+// 4·80 a pair, 0.093 ms at 989 TFLOP/s (1.37 ms on the f32 cores); q, k, v
+// and o 122.8 MB, 0.037 ms; the exps 0.069 ms.  The operations bound it.
 //
 // Design (a simple first kernel: f32 arithmetic on the CUDA cores, no
 // tensor cores, no asynchronous copies).
@@ -54,21 +63,31 @@
 //    rows, query head, batch row).  The q tile is staged once in shared
 //    memory, scaled, in f32; key tiles of 64 rows of k and v are staged in
 //    f32, tiles wholly above the causal diagonal, wholly left of every
-//    row's window or past Sk are never read.  Thread (ty, tx) of a 16x16 grid owns query rows 4ty..4ty+3 and,
+//    row's window or past Sk are never read (non-causal: every tile below
+//    Sk; rows of the last tile past Sk are zeros and masked by key < Sk).
+//    Thread (ty, tx) of a 16x16 grid owns query rows 4ty..4ty+3 and,
 //    in q·kᵀ, keys tx + 16j; its running max, sum and its 4 x hd/16 slice
-//    of the accumulator stay in registers.  A row's max and sum are reduced
-//    over its 16 threads with shuffles; p goes through shared memory (key
-//    major) to the p·v product.  Shared rows are padded so that the float4
-//    reads of a quarter warp fall in distinct banks.
+//    of the accumulator stay in registers.  In p·v it owns the float4
+//    columns 4tx + 64c (c < hd/64) and, where hd is not a multiple of 64
+//    (80), the single columns 64·(hd/64) + 16e + tx (e < (hd % 64)/16), so
+//    every column is accumulated and written and every lane does the same
+//    work.  A row's max and sum are reduced over its 16 threads with
+//    shuffles; p goes through shared memory (key major) to the p·v product.
+//    Shared rows of q and k are padded to hd + 4 floats, so that the float4
+//    reads of a quarter warp (8 rows tx apart) fall in distinct banks: the
+//    row stride is 4 banks mod 32 at hd 64, 128 and 256 and 20 at hd 80,
+//    and 20·tx mod 32 (tx < 8) covers 8 distinct groups of 4 banks.
 //  * Decode form (Sq = 1): one block per (KV head, batch row) serves the
 //    head's whole query group (up to 16 query heads), so each key and value
 //    row is read from memory once for the group.  Keys go in chunks of 256,
 //    one per thread for q·kᵀ; warp w runs the online softmax of query heads
 //    w and w+8 over the chunk in shared memory; then each thread
 //    accumulates p·v for one head-dim column of its heads, reading v rows
-//    coalesced.  At hd 256 the prefill's shared memory is 216,064 bytes, one
-//    block an SM (232,448 at most), and a thread holds 4 x 16 accumulators;
-//    the decode form gives each thread one head-dim column of all 16 heads.
+//    coalesced (hd must divide 256, so not 80).  At hd 256 the prefill's
+//    shared memory is 216,064 bytes, one block an SM (232,448 at most), and
+//    a thread holds 4 x 16 accumulators; the decode form gives each thread
+//    one head-dim column of all 16 heads.  At hd 80 the prefill takes
+//    80,896 bytes, two blocks an SM, and 4 x 5 accumulators a thread.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -142,11 +161,14 @@ template <typename T, int HD>
 __global__ void __launch_bounds__(kThreads)
 prefill_kernel(const T* __restrict__ q, const T* __restrict__ k,
                const T* __restrict__ v, T* __restrict__ o, int Sq, int Sk,
-               int H, int KV, int window, float scale) {
+               int H, int KV, int window, int causal, float scale) {
   constexpr int LD = HD + 4;    // padded row of q_s and k_s, in floats
   constexpr int LDP = kBQ + 4;  // padded row of p_s
   constexpr int V4 = HD / 4;    // float4 columns of a row
   constexpr int DC = HD / 64;   // float4 columns a thread owns in p·v
+  constexpr int DR = HD % 64 / 16;  // and single columns past 64·DC
+  constexpr int NA = 4 * DC + DR;   // accumulators a row
+  static_assert(HD % 16 == 0 && DC >= 1, "head_dim: a multiple of 16, >= 64");
   extern __shared__ float4 smem4[];
   float* q_s = reinterpret_cast<float*>(smem4);  // [kBQ][LD], scaled q
   float* k_s = q_s + kBQ * LD;                   // [kBK][LD]
@@ -173,18 +195,19 @@ prefill_kernel(const T* __restrict__ q, const T* __restrict__ k,
     store4(q_s + r * LD + c, x);
   }
 
-  float m[4], l[4], acc[4][4 * DC];
+  float m[4], l[4], acc[4][NA];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     m[i] = kNegInf;
     l[i] = 0.f;
 #pragma unroll
-    for (int d = 0; d < 4 * DC; ++d) acc[i][d] = 0.f;
+    for (int d = 0; d < NA; ++d) acc[i][d] = 0.f;
   }
 
-  // keys any row of this tile may see: below Sk, up to its last row and,
-  // with a window, from its first row's first key on (whole tiles only)
-  const int n_keys = min(Sk, min(q0 + kBQ, Sq));
+  // keys any row of this tile may see: below Sk and, when causal, up to its
+  // last row and, with a window, from its first row's first key on (whole
+  // tiles only)
+  const int n_keys = causal ? min(Sk, min(q0 + kBQ, Sq)) : Sk;
   const int k_first = window > 0 ? max(0, q0 - window + 1) / kBK * kBK : 0;
   for (int k0 = k_first; k0 < n_keys; k0 += kBK) {
     __syncthreads();  // q_s is staged; the last tile's readers are done
@@ -231,7 +254,8 @@ prefill_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int key = k0 + tx + 16 * j;
-        if (!(key < Sk && key <= pos && (window == 0 || pos - key < window)))
+        if (!(key < Sk && (!causal || (key <= pos &&
+                                       (window == 0 || pos - key < window)))))
           s[i][j] = kNegInf;
         mx = fmaxf(mx, s[i][j]);
       }
@@ -246,7 +270,7 @@ prefill_kernel(const T* __restrict__ q, const T* __restrict__ k,
       l[i] = l[i] * alpha + sum16(sum);
       m[i] = m_new;
 #pragma unroll
-      for (int d = 0; d < 4 * DC; ++d) acc[i][d] *= alpha;
+      for (int d = 0; d < NA; ++d) acc[i][d] *= alpha;
     }
 #pragma unroll
     for (int j = 0; j < 4; ++j)
@@ -270,6 +294,13 @@ prefill_kernel(const T* __restrict__ q, const T* __restrict__ k,
           acc[i][dc * 4 + 3] = fmaf(pr[i], va.w, acc[i][dc * 4 + 3]);
         }
       }
+#pragma unroll
+      for (int e = 0; e < DR; ++e) {
+        const float vx = v_s[c * HD + DC * 64 + e * 16 + tx];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          acc[i][4 * DC + e] = fmaf(pr[i], vx, acc[i][4 * DC + e]);
+      }
     }
   }
 
@@ -283,6 +314,9 @@ prefill_kernel(const T* __restrict__ q, const T* __restrict__ k,
       store4(ob + r * q_row + dc * 64 + tx * 4,
              make_float4(acc[i][dc * 4 + 0] / den, acc[i][dc * 4 + 1] / den,
                          acc[i][dc * 4 + 2] / den, acc[i][dc * 4 + 3] / den));
+#pragma unroll
+    for (int e = 0; e < DR; ++e)
+      store1(ob + r * q_row + DC * 64 + e * 16 + tx, acc[i][4 * DC + e] / den);
   }
 }
 
@@ -393,13 +427,19 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
 template <typename T, int HD>
 int launch(const void* q, const void* k, const void* v, void* o, int B,
            int Sq, int Sk, int H, int KV, int q_offset, int k_len,
-           int window, float scale, cudaStream_t stream) {
+           int window, int causal, float scale, cudaStream_t stream) {
   if (Sq == 1) {
-    if (H / KV > kMaxGroups || window != 0) return (int)cudaErrorInvalidValue;
-    const int n_keys = min(k_len, q_offset + 1);
-    decode_kernel<T, HD><<<dim3(KV, B), kThreads, 0, stream>>>(
-        (const T*)q, (const T*)k, (const T*)v, (T*)o, Sk, H, KV, n_keys,
-        scale);
+    // the decode form gives each thread one of hd columns: hd divides 256
+    if constexpr (kThreads % HD != 0) {
+      return (int)cudaErrorInvalidValue;
+    } else {
+      if (H / KV > kMaxGroups || window != 0 || !causal)
+        return (int)cudaErrorInvalidValue;
+      const int n_keys = min(k_len, q_offset + 1);
+      decode_kernel<T, HD><<<dim3(KV, B), kThreads, 0, stream>>>(
+          (const T*)q, (const T*)k, (const T*)v, (T*)o, Sk, H, KV, n_keys,
+          scale);
+    }
   } else {
     constexpr int smem = prefill_smem_bytes<HD>();
     static const cudaError_t attr = cudaFuncSetAttribute(
@@ -409,7 +449,7 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
     const dim3 grid((Sq + kBQ - 1) / kBQ, H, B);
     prefill_kernel<T, HD><<<grid, kThreads, smem, stream>>>(
         (const T*)q, (const T*)k, (const T*)v, (T*)o, Sq, Sk, H, KV, window,
-        scale);
+        causal, scale);
   }
   return (int)cudaGetLastError();
 }
@@ -417,17 +457,20 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
 template <typename T>
 int launch_hd(int hd, const void* q, const void* k, const void* v, void* o,
               int B, int Sq, int Sk, int H, int KV, int q_offset, int k_len,
-              int window, float scale, cudaStream_t stream) {
+              int window, int causal, float scale, cudaStream_t stream) {
   switch (hd) {
     case 64:
       return launch<T, 64>(q, k, v, o, B, Sq, Sk, H, KV, q_offset, k_len,
-                           window, scale, stream);
+                           window, causal, scale, stream);
+    case 80:
+      return launch<T, 80>(q, k, v, o, B, Sq, Sk, H, KV, q_offset, k_len,
+                           window, causal, scale, stream);
     case 128:
       return launch<T, 128>(q, k, v, o, B, Sq, Sk, H, KV, q_offset, k_len,
-                            window, scale, stream);
+                            window, causal, scale, stream);
     case 256:
       return launch<T, 256>(q, k, v, o, B, Sq, Sk, H, KV, q_offset, k_len,
-                            window, scale, stream);
+                            window, causal, scale, stream);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -436,21 +479,26 @@ int launch_hd(int hd, const void* q, const void* k, const void* v, void* o,
 }  // namespace
 
 // is_bf16: 1 when q, k, v and o are bf16, 0 for f32.  Sq 1 runs the decode
-// form, which takes window 0 only; longer queries the prefill form, which
-// takes q_offset 0 and k_len Sk only (window 0: causal, no window).
-// Returns cudaGetLastError().
+// form, which takes window 0 only, causal only and no hd 80; longer queries
+// the prefill form, which takes q_offset 0 and k_len Sk only (window 0: no
+// window).  causal 0 (the prefill form's non-causal function) takes no
+// window and neither Sq 1 nor (q_offset, k_len) other than (0, Sk).
+// Returns cudaGetLastError(), or cudaErrorInvalidValue for what it refuses.
 extern "C" int flash_attention(const void* q, const void* k, const void* v,
                                void* o, int B, int Sq, int Sk, int H, int KV,
                                int hd, int q_offset, int k_len, int window,
-                               float scale, int is_bf16, void* stream) {
+                               int causal, float scale, int is_bf16,
+                               void* stream) {
   if (B <= 0 || Sq <= 0 || KV <= 0 || H % KV != 0 || k_len < 1 ||
       k_len > Sk || q_offset < 0 || window < 0 ||
-      (Sq > 1 && (q_offset != 0 || k_len != Sk)) || (Sq == 1 && window != 0))
+      (Sq > 1 && (q_offset != 0 || k_len != Sk)) || (Sq == 1 && window != 0) ||
+      (!causal && (Sq == 1 || window != 0 || q_offset != 0 || k_len != Sk)))
     return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
   if (is_bf16)
     return launch_hd<__nv_bfloat16>(hd, q, k, v, o, B, Sq, Sk, H, KV,
-                                    q_offset, k_len, window, scale, st);
+                                    q_offset, k_len, window, causal, scale,
+                                    st);
   return launch_hd<float>(hd, q, k, v, o, B, Sq, Sk, H, KV, q_offset, k_len,
-                          window, scale, st);
+                          window, causal, scale, st);
 }

@@ -2,7 +2,8 @@
 tensor, the plain version for a CPU tensor, nothing else.  The model's
 attention (``models/attention.py``) calls this once per layer: over the
 prompt in prefill (with a window on the hybrid family's local-attention
-layers) and over the KV cache or ring in every decode step."""
+layers), over the KV cache or ring in every decode step, and non-causally
+over the frames in the audio family's encoder."""
 
 import torch
 
@@ -12,13 +13,13 @@ from .ref import attention_ref
 
 def gqa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   q_offset: int = 0, k_len: int | None = None,
-                  window: int = 0) -> torch.Tensor:
+                  window: int = 0, causal: bool = True) -> torch.Tensor:
     """q (B, Sq, H, hd); k, v (B, Sk, KV, hd).  Returns (B, Sq, H, hd):
-    causal attention of query rows at positions ``q_offset + i`` over the
-    first ``k_len`` keys (default all), within ``window`` keys of each
-    row when it is > 0."""
+    attention of query rows at positions ``q_offset + i`` over the first
+    ``k_len`` keys (default all), causal unless ``causal`` is False,
+    within ``window`` keys of each row when it is > 0."""
     if q.is_cuda:
-        return flash_attention(q, k, v, q_offset, k_len, window)
+        return flash_attention(q, k, v, q_offset, k_len, window, causal)
     if q.device.type == "cpu":
-        return attention_ref(q, k, v, q_offset, k_len, window)
+        return attention_ref(q, k, v, q_offset, k_len, window, causal)
     raise ValueError(f"no attention path for device {q.device}")

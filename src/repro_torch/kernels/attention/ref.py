@@ -1,13 +1,14 @@
-"""Plain PyTorch version of K4: causal GQA attention as full-matrix torch
-in float32, with the query offset, the valid key count and the sliding
-window of the CUDA kernel, on any device.  The CPU path and the oracle the CUDA kernel is
-held against.
+"""Plain PyTorch version of K4: GQA attention as full-matrix torch in
+float32, causal or not, with the query offset, the valid key count and
+the sliding window of the CUDA kernel, on any device.  The CPU path and
+the oracle the CUDA kernel is held against.
 
 It computes the function of the reference's TPU kernel
-(``src/repro/kernels/attention/attention.py::flash_attention``, causal,
-with or without a window, no soft-cap) in the model's layout: q is scaled by hd^-0.5 in
-float32 before the product, as that kernel scales it, masked scores
-become -1e30, and the result is cast to q's dtype.
+(``src/repro/kernels/attention/attention.py::flash_attention``, causal
+with or without a window, or non-causal, no soft-cap) in the model's
+layout: q is scaled by hd^-0.5 in float32 before the product, as that
+kernel scales it, masked scores become -1e30, and the result is cast to
+q's dtype.
 """
 
 from __future__ import annotations
@@ -27,12 +28,14 @@ HOLD = {torch.float32: (0.0, 2 ** -13), torch.bfloat16: (2 ** -7, 2 ** -10)}
 
 def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   q_offset: int = 0, k_len: int | None = None,
-                  window: int = 0) -> torch.Tensor:
+                  window: int = 0, causal: bool = True) -> torch.Tensor:
     """q (B, Sq, H, hd); k, v (B, Sk, KV, hd) with KV dividing H (query
     head h reads KV head h // (H / KV)).  Query row i sits at absolute
     position ``q_offset + i`` and sees key j when ``j < k_len`` (default
-    Sk), ``j <= q_offset + i`` and, with ``window`` > 0, ``q_offset + i -
-    j < window``.  Returns (B, Sq, H, hd) in q's dtype."""
+    Sk), when ``causal`` also ``j <= q_offset + i``, and with ``window``
+    > 0 also ``q_offset + i - j < window``: not causal and without a
+    window, ``j < k_len`` is the only mask (the TPU kernel's ``k_pos <
+    sk``).  Returns (B, Sq, H, hd) in q's dtype."""
     b, sq, h, hd = q.shape
     sk, kvh = k.shape[1], k.shape[2]
     k_len = sk if k_len is None else k_len
@@ -40,9 +43,11 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     s = torch.einsum("bqkgd,bpkd->bkgqp", qf, k.to(torch.float32))
     q_pos = q_offset + torch.arange(sq, device=q.device)
     k_pos = torch.arange(sk, device=q.device)
-    ok = (k_pos[None, :] < k_len) & (k_pos[None, :] <= q_pos[:, None])
+    ok = k_pos[None, :] < k_len
+    if causal:
+        ok = ok & (k_pos[None, :] <= q_pos[:, None])
     if window:
-        ok &= q_pos[:, None] - k_pos[None, :] < window
+        ok = ok & (q_pos[:, None] - k_pos[None, :] < window)
     s = torch.where(ok, s, NEG_INF)
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bkgqp,bpkd->bqkgd", p, v.to(torch.float32))

@@ -8,9 +8,12 @@ an argmax.  Prints the prefill time and the decode rate, as the reference
 does.  Runs on the card unless ``--device cpu``; serves the ssm family
 (Falcon-Mamba), the dense family (StarCoder2, SmolLM, Qwen1.5) and the
 hybrid family (RecurrentGemma) and exits with a message for any other
-arch.  The KV cache (the hybrid's ring buffers) takes the weights' dtype
-(``--dtype``).  ``--reduced`` (the default) keeps head_dim 64, a head dim
-K4 is built for, so a reduced dense or hybrid model runs on the card too.
+arch: first, as the reference does, for an encoder-only arch (HuBERT:
+"<arch> is encoder-only: no decode step"), whose forward the port runs
+but which has nothing to serve.  The KV cache (the hybrid's ring
+buffers) takes the weights' dtype (``--dtype``).  ``--reduced`` (the
+default) keeps head_dim 64, a head dim K4 is built for, so a reduced
+dense or hybrid model runs on the card too.
 
     python -m repro_torch.launch.serve --arch starcoder2-3b --full \\
         --dtype bfloat16 --batch 4 --prompt-len 2048 --new-tokens 32
@@ -81,6 +84,8 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     cfg = get_config(args.arch)
+    if not cfg.supports_decode:
+        raise SystemExit(f"{args.arch} is encoder-only: no decode step")
     try:
         require_served(cfg)
     except NotImplementedError as e:

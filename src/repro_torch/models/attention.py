@@ -1,6 +1,8 @@
 """Grouped-query attention of the port (``src/repro/models/attention.py``):
 causal self-attention over the prompt (with a sliding window on the hybrid
-family's local-attention layers) and over a KV cache or ring buffer.
+family's local-attention layers) and over a KV cache or ring buffer, and
+bidirectional self-attention over the frames of the audio family's
+encoder.
 
 The projections are plain PyTorch matrix products, as they are XLA's in
 the reference; both attention calls go through K4
@@ -11,8 +13,8 @@ decode form with the query at position ``cache_len - 1``.  The reference
 scales q and casts p in the input dtype; the port follows the TPU kernel
 (q scaled and p kept in float32), so the two agree to rounding in float32
 and differ by bf16 rounding in bfloat16.  Logit soft-caps and gemma2's
-windowed decode over a linear cache wait for the gemma2 slice, the
-bidirectional mask for the audio family (ROADMAP §1).
+windowed decode over a linear cache wait for the gemma2 slice (ROADMAP
+§1).
 """
 
 from __future__ import annotations
@@ -60,11 +62,13 @@ class Attention(nn.Module):
 
     @staticmethod
     def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                  window: int = 0) -> torch.Tensor:
-        """Causal attention of the sequence over itself (train, prefill):
-        q (B, S, H, hd), k, v (B, S, KV, hd) -> (B, S, H, hd); with
-        ``window`` > 0 query i sees keys i - window < j <= i only."""
-        return gqa_attention(q, k, v, window=window)
+                  window: int = 0, causal: bool = True) -> torch.Tensor:
+        """Attention of the sequence over itself (train, prefill, encode):
+        q (B, S, H, hd), k, v (B, S, KV, hd) -> (B, S, H, hd); causal, with
+        ``window`` > 0 query i sees keys i - window < j <= i only; not
+        ``causal`` (an encoder: ``cfg.causal``), every query sees every
+        key."""
+        return gqa_attention(q, k, v, window=window, causal=causal)
 
     @staticmethod
     def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,

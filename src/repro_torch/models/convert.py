@@ -1,10 +1,11 @@
 """Weights carried across from the reference: a ``repro.models``
-parameter tree, as numpy arrays, into the port's ``MambaLM``, ``DenseLM``
-or ``HybridLM``.
+parameter tree, as numpy arrays, into the port's ``MambaLM``,
+``DenseLM`` or ``HybridLM``.
 
 The tree is what ``repro.models.init_params`` returns, converted leaf by
-leaf with ``numpy.asarray``: ``embed``, ``ln_f``, ``lm_head`` (untied
-only) and ``blocks``, whose leaves carry the layers on axis 0.
+leaf with ``numpy.asarray``: ``embed`` (token models only), ``ln_f``,
+``lm_head`` (untied only) and ``blocks``, whose leaves carry the layers
+on axis 0.
 * ssm: ``blocks/ln1`` (L, d) and ``blocks/ssm/{in_proj, ...}``.
   ``blocks/ln2`` is dropped: the reference initialises it for every family
   but the ssm family has no FFN and never reads it.
@@ -15,6 +16,8 @@ only) and ``blocks``, whose leaves carry the layers on axis 0.
   layer: ``ln1``, ``ln2``, ``rglru/{wx, wy, conv, w_input_gate,
   w_rec_gate, a_param, wo}``, ``mlp/{wi, wg, wo}``) and ``blocks/attn``
   (one per local-attention layer, the dense leaves).
+* audio (``frontend == "frames"``): no ``embed``; the dense leaves, with
+  the untied ``lm_head``.
 Layouts are the same on both sides, so each leaf is copied as it is;
 bfloat16 leaves (``ml_dtypes``) are reinterpreted bit for bit.
 """
@@ -74,13 +77,15 @@ def _copy_blocks(modules, blocks: dict, mixer: str, cfg: ArchConfig,
 
 
 def params_from_numpy(tree: dict, cfg: ArchConfig, device=None):
-    """A ``MambaLM`` (ssm), ``DenseLM`` (dense) or ``HybridLM`` (hybrid) on
-    ``device`` (the card unless the caller asks for the CPU) holding the
-    reference tree's weights, in the tree's projection dtype."""
-    dtype = _tensor(tree["embed"]).dtype
+    """A ``MambaLM`` (ssm), ``DenseLM`` (dense, audio) or ``HybridLM``
+    (hybrid) on ``device`` (the card unless the caller asks for the CPU)
+    holding the reference tree's weights, in the dtype of its head
+    (``lm_head``, or the tied ``embed``)."""
+    dtype = _tensor(tree["embed" if cfg.tie_embeddings else "lm_head"]).dtype
     dev = resolve_device(device)
     model = MODELS[cfg.family](cfg, dtype, dev)
-    heads = ("embed", "ln_f") + (() if cfg.tie_embeddings else ("lm_head",))
+    heads = ((("embed",) if cfg.frontend == "tokens" else ()) + ("ln_f",)
+             + (() if cfg.tie_embeddings else ("lm_head",)))
     for name in heads:
         _copy(getattr(model, name), tree[name], name)
     if cfg.family == "hybrid":

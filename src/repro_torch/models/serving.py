@@ -27,6 +27,11 @@ hybrid families: prefill + single-token decode with an explicit cache.
   layer and K4 once per attention layer.  The rings are written in place.
 
 Every cache carries ``len``, the tokens consumed, as a Python int.
+
+The audio family's encoder (HuBERT) has no decode step, in the reference
+as here (``cfg.supports_decode`` is False): ``init_cache`` and
+``prefill``, which every cache comes from, refuse it and name
+``forward``, which encodes.
 """
 
 from __future__ import annotations
@@ -39,6 +44,17 @@ from .recurrent import mamba_init_state, rglru_init_state
 from .transformer import require_served
 
 
+def require_decode(cfg: ArchConfig) -> None:
+    """Raise ``ValueError`` for a config without a decode step (an
+    encoder), naming ``forward``; else ``require_served``."""
+    if not cfg.supports_decode:
+        raise ValueError(
+            f"{cfg.name} is encoder-only: it has no cache, prefill or decode "
+            f"step; encode with models.forward(model, cfg, "
+            f"{{'embeds': x}})")
+    require_served(cfg)
+
+
 def init_cache(cfg: ArchConfig, batch: int, max_len: int,
                dtype=torch.bfloat16, device=None) -> dict:
     """Zero decode cache on ``device`` (the card unless the caller asks for
@@ -49,7 +65,7 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int,
     family ``k`` and ``v``, one (B, min(window, max_len), KV, hd) ring of
     ``dtype`` per attention layer, and ``rec``, one ``rglru_init_state``
     per RG-LRU layer."""
-    require_served(cfg)
+    require_decode(cfg)
     dev = resolve_device(device)
     kinds = [cfg.layer_kind(i) for i in range(cfg.n_layers)]
     if cfg.family == "ssm":
@@ -82,6 +98,7 @@ def prefill(params, cfg: ArchConfig, batch: dict, max_len: int,
     reference's ``_prefill_recurrent`` returns them.  Ssm: ``max_len`` and
     ``cache_dtype`` are unused; the states take the model's dtype, as the
     reference's ``_prefill_recurrent`` returns them."""
+    require_decode(cfg)
     tokens = batch["tokens"]
     b, s = tokens.shape
     if cfg.family == "ssm":

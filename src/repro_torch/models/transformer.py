@@ -1,9 +1,10 @@
 """The port's language model (``src/repro/models/transformer.py``), ssm,
-dense and hybrid families: ``MambaLM``, ``DenseLM``, ``HybridLM``,
+dense, hybrid and audio families: ``MambaLM``, ``DenseLM``, ``HybridLM``,
 ``init_params`` and ``forward``.
 
     model  = init_params(cfg, seed, dtype, device)
     logits = forward(model, cfg, batch)                 # train / no-cache
+    logits = forward(model, cfg, {"embeds": x})         # audio: encode
 
 The reference stacks its layers on a leading axis for ``lax.scan``; the
 port keeps one block per layer in a ``ModuleList``.  An ssm block is
@@ -16,7 +17,12 @@ ln1))``, then ``x + mlp(rms_norm(x, ln2))``.  The hybrid family
 shape with the RG-LRU mixer in place of attention) with local-attention
 blocks (a dense block with the RG-LRU config's window), kept in the
 reference's two groups and run in the order of ``cfg.layer_kind``.  The
-other families, and the dense configs with gemma2's features, wait for the
+audio family (HuBERT) is a ``DenseLM`` that takes the reference's
+``frontend == "frames"`` branch at its input: no embedding, frame
+embeddings (B, S, d) in, then the dense blocks with bidirectional
+attention (``cfg.causal`` False), RoPE from positions [0, S), ``ln_f`` and
+an untied head; it has no decode step.  The other
+families, and the dense configs with gemma2's features, wait for the
 slices that bring them (ROADMAP §1).
 """
 
@@ -34,10 +40,8 @@ from .recurrent import MambaMixer, RGLRUMixer, init_mamba, init_rglru
 
 #: the slice that will bring each family not ported yet (ROADMAP §1)
 _WAITING = {
-    "vlm": "the vlm family's slice (M-RoPE), with the rest of the LM "
-           "scaffold",
-    "audio": "the audio family's slice (K4's non-causal form, the frames "
-             "frontend), with the rest of the LM scaffold",
+    "vlm": "the vlm family's slice (M-RoPE, the patches frontend), with "
+           "the rest of the LM scaffold",
     "moe": "the rest of the LM scaffold (MoE layers)",
 }
 _GEMMA2 = ("the gemma2 serving slice L2g (K4's soft-cap and windowed decode "
@@ -46,20 +50,28 @@ _GEMMA2 = ("the gemma2 serving slice L2g (K4's soft-cap and windowed decode "
 
 def require_served(cfg: ArchConfig) -> None:
     """Raise ``NotImplementedError`` naming the slice that brings ``cfg``
-    unless the port serves it: the ssm and hybrid families, and the dense
-    family without gemma2's features."""
-    if cfg.family not in ("ssm", "dense", "hybrid"):
+    unless the port runs it: the ssm and hybrid families, the dense family
+    without gemma2's features, and the audio family's encoder (``forward``
+    only: its missing decode step is refused by ``models/serving.py`` and
+    ``launch/serve.py``, as the reference refuses it)."""
+    if cfg.family not in ("ssm", "dense", "hybrid", "audio"):
         raise NotImplementedError(
-            f"{cfg.name}: the port has the ssm, dense and hybrid families "
-            f"only; the {cfg.family!r} family waits for "
+            f"{cfg.name}: the port has the ssm, dense, hybrid and audio "
+            f"families only; the {cfg.family!r} family waits for "
             f"{_WAITING.get(cfg.family, 'a later slice')}")
-    if cfg.frontend != "tokens" or not cfg.causal:
+    if cfg.family == "audio":
+        if cfg.frontend != "frames" or cfg.causal:
+            raise NotImplementedError(
+                f"{cfg.name}: the port's audio family is a non-causal "
+                f"frame encoder only")
+    elif cfg.frontend != "tokens" or not cfg.causal:
         raise NotImplementedError(
-            f"{cfg.name}: the port serves causal token models only")
-    if cfg.family == "ssm" and cfg.tie_embeddings:
+            f"{cfg.name}: the port's {cfg.family} family is a causal token "
+            f"model only")
+    if cfg.family in ("ssm", "audio") and cfg.tie_embeddings:
         raise NotImplementedError(
-            f"{cfg.name}: the ssm path has untied embeddings only")
-    if cfg.family == "dense" and (
+            f"{cfg.name}: the {cfg.family} path has untied embeddings only")
+    if cfg.family in ("dense", "audio") and (
             cfg.local_window or cfg.local_global_alternate
             or cfg.logit_softcap or cfg.final_softcap or cfg.post_norm
             or cfg.act not in ("silu", "gelu")):
@@ -131,14 +143,16 @@ class DenseBlock(nn.Module):
     """``x + attn(rms_norm(x, ln1))``, then ``x + mlp(rms_norm(x, ln2))``.
     ``forward`` runs the sequence over itself (query i over keys within
     ``window`` of it when that is > 0: the hybrid family's local
-    attention) and also returns its roped k and v (for the prefill's
-    cache); ``decode`` runs one token per row over the cache, writing its
-    k/v into it first."""
+    attention; over every key when ``cfg.causal`` is False: the audio
+    family's encoder) and also returns its roped k and v (for the
+    prefill's cache); ``decode`` runs one token per row over the cache,
+    writing its k/v into it first."""
 
     def __init__(self, cfg: ArchConfig, dtype, device, window: int = 0):
         super().__init__()
         self.eps = cfg.norm_eps
         self.window = window
+        self.causal = cfg.causal
         self.ln1 = _norm(cfg.d_model, device)
         self.ln2 = _norm(cfg.d_model, device)
         self.attn = Attention(cfg, dtype, device)
@@ -149,8 +163,8 @@ class DenseBlock(nn.Module):
 
     def forward(self, x: torch.Tensor, rope):
         q, k, v = self.attn.qkv_project(rms_norm(x, self.ln1, self.eps), rope)
-        x = x + self.attn.out_project(self.attn.attention(q, k, v,
-                                                          self.window))
+        x = x + self.attn.out_project(self.attn.attention(
+            q, k, v, self.window, self.causal))
         return self._ffn(x), k, v
 
     def decode(self, x: torch.Tensor, rope, k_cache: torch.Tensor,
@@ -178,34 +192,52 @@ def write_kv(k_cache: torch.Tensor, v_cache: torch.Tensor, k: torch.Tensor,
     v_cache[:, start:start + s] = v
 
 
-class _TokenLM(nn.Module):
-    """What the dense and hybrid models share: the embedding, final norm
-    ``ln_f`` and the head: ``lm_head`` (d, vocab), or with tied embeddings
-    ``embed`` transposed, the input then scaled by sqrt(d) in the
-    embedding's dtype as the reference scales it; RoPE tables for the
-    attention layers.  Reference layouts, on ``device`` (the card unless
-    the caller asks for the CPU).  Built empty; ``init_params`` or
+class _LM(nn.Module):
+    """What the dense, hybrid and audio models share: a token model's
+    embedding ``embed`` (a frame encoder has none), the final norm ``ln_f``
+    and the head: ``lm_head`` (d, vocab), or with tied embeddings ``embed``
+    transposed, the input then scaled by sqrt(d) in the embedding's dtype
+    as the reference scales it; RoPE tables for the attention layers.
+    Reference layouts, on ``device`` (the card unless the caller asks for
+    the CPU).  Built empty; ``init_params`` or
     ``convert.params_from_numpy`` fill it."""
 
-    family = ""
+    families: tuple = ()
 
     def __init__(self, cfg: ArchConfig, dtype, device):
         super().__init__()
         require_served(cfg)
-        if cfg.family != self.family:
+        if cfg.family not in self.families:
             raise ValueError(f"{cfg.name}: {type(self).__name__} takes the "
-                             f"{self.family} family")
+                             f"{' or '.join(self.families)} family")
         device = resolve_device(device)
         self.cfg = cfg
         d, v = cfg.d_model, cfg.vocab_size
-        self.embed = param((v, d), dtype, device)
+        if cfg.frontend == "tokens":
+            self.embed = param((v, d), dtype, device)
         self.ln_f = _norm(d, device)
         if not cfg.tie_embeddings:
             self.lm_head = param((d, v), dtype, device)
 
     @property
     def dtype(self) -> torch.dtype:
-        return self.embed.dtype
+        return (self.embed if self.cfg.tie_embeddings else self.lm_head).dtype
+
+    def _inputs(self, inputs: torch.Tensor) -> torch.Tensor:
+        """The first block's input: the embedding of tokens (B, S), or
+        frame embeddings (B, S, d) in the weights' dtype, as they are (the
+        reference's ``x @ wq`` would promote float32 embeddings over
+        bfloat16 weights to float32; the port takes one dtype and refuses
+        another)."""
+        if self.cfg.frontend == "tokens":
+            return self._embed(inputs)
+        if inputs.dim() != 3 or inputs.shape[-1] != self.cfg.d_model:
+            raise ValueError(f"{self.cfg.name}: embeds must be (B, S, "
+                             f"{self.cfg.d_model}), got {tuple(inputs.shape)}")
+        if inputs.dtype != self.dtype:
+            raise ValueError(f"{self.cfg.name}: embeds are {inputs.dtype}, "
+                             f"the weights {self.dtype}; cast them")
+        return inputs
 
     def _embed(self, tokens: torch.Tensor) -> torch.Tensor:
         x = self.embed[tokens]
@@ -214,11 +246,12 @@ class _TokenLM(nn.Module):
                                  device=x.device)
         return x
 
-    def _rope_fn(self, tokens: torch.Tensor, start: int):
-        """RoPE table of positions ``start + [0, S)`` for every row (plain
-        RoPE; M-RoPE waits for the vlm family)."""
-        b, s = tokens.shape
-        pos = torch.arange(start, start + s, device=tokens.device)
+    def _rope_fn(self, x: torch.Tensor, start: int):
+        """RoPE table of positions ``start + [0, S)`` for every row of ``x``
+        (tokens (B, S) or embeddings (B, S, d); plain RoPE, M-RoPE waits
+        for the vlm family)."""
+        b, s = x.shape[:2]
+        pos = torch.arange(start, start + s, device=x.device)
         return rope_table(pos.expand(b, s), self.cfg.resolved_head_dim,
                           self.cfg.rope_theta)
 
@@ -228,25 +261,28 @@ class _TokenLM(nn.Module):
         return x @ head
 
 
-class DenseLM(_TokenLM):
-    """Embedding, ``n_layers`` dense blocks, final norm and head
-    (``_TokenLM``)."""
+class DenseLM(_LM):
+    """Embedding (a frame encoder has none), ``n_layers`` dense blocks,
+    final norm and head (``_LM``): the dense family, and the audio
+    family's encoder (HuBERT), whose blocks attend bidirectionally and
+    which has no decode step."""
 
-    family = "dense"
+    families = ("dense", "audio")
 
     def __init__(self, cfg: ArchConfig, dtype=torch.float32, device=None):
         super().__init__(cfg, dtype, device)
         self.blocks = nn.ModuleList(
-            DenseBlock(cfg, dtype, self.embed.device)
+            DenseBlock(cfg, dtype, self.ln_f.device)
             for _ in range(cfg.n_layers))
 
-    def run(self, tokens: torch.Tensor, kv: tuple | None = None
+    def run(self, inputs: torch.Tensor, kv: tuple | None = None
             ) -> torch.Tensor:
-        """tokens (B, S) at positions [0, S) -> logits (B, S, vocab).  With
-        ``kv`` (per-layer lists of k and v caches), each layer's roped k/v
-        are also written into its cache at [0, S)."""
-        x = self._embed(tokens)
-        rope = self._rope_fn(tokens, 0)
+        """tokens (B, S), or frame embeddings (B, S, d) (``_inputs``), at
+        positions [0, S) -> logits (B, S, vocab).  With ``kv`` (per-layer
+        lists of k and v caches), each layer's roped k/v are also written
+        into its cache at [0, S)."""
+        x = self._inputs(inputs)
+        rope = self._rope_fn(inputs, 0)
         for i, block in enumerate(self.blocks):
             x, k, v = block(x, rope)
             if kv is not None:
@@ -297,19 +333,19 @@ def ring_fill(k_cache: torch.Tensor, v_cache: torch.Tensor, k: torch.Tensor,
     v_cache[:, slots] = v[:, src]
 
 
-class HybridLM(_TokenLM):
+class HybridLM(_LM):
     """Embedding, the RG-LRU and local-attention blocks, final norm and
-    head (``_TokenLM``).  ``blocks["rglru"]`` and ``blocks["attn"]`` hold
+    head (``_LM``).  ``blocks["rglru"]`` and ``blocks["attn"]`` hold
     the two kinds in the reference's stacked grouping; ``order`` lists
     ``(kind, index in its group)`` layer by layer, in the order of
     ``cfg.layer_kind``.  The attention blocks attend within
     ``cfg.rglru.window`` keys."""
 
-    family = "hybrid"
+    families = ("hybrid",)
 
     def __init__(self, cfg: ArchConfig, dtype=torch.float32, device=None):
         super().__init__(cfg, dtype, device)
-        dev = self.embed.device
+        dev = self.ln_f.device
         kinds = [cfg.layer_kind(i) for i in range(cfg.n_layers)]
         self.order = [("rglru" if k == "rglru" else "attn",
                        sum(j == k for j in kinds[:i]))
@@ -359,26 +395,28 @@ class HybridLM(_TokenLM):
         return self._logits(x), new_states
 
 
-#: the port's model class of each family it serves
-MODELS = {"ssm": MambaLM, "dense": DenseLM, "hybrid": HybridLM}
+#: the port's model class of each family it runs
+MODELS = {"ssm": MambaLM, "dense": DenseLM, "hybrid": HybridLM,
+          "audio": DenseLM}
 
 
 def init_params(cfg: ArchConfig, seed: int = 0, dtype=torch.float32,
                 device=None):
-    """A ``MambaLM`` (ssm), ``DenseLM`` (dense) or ``HybridLM`` (hybrid)
-    with weights drawn from a ``torch.Generator`` seeded with ``seed`` on
-    ``device`` (the card unless the caller asks for the CPU), with the
-    reference's distributions: embedding N(0, 1) (tied: at scale d^-0.5)
-    and ``lm_head`` at d^-0.5, truncated at 2 sigma; norms and biases
-    zero."""
+    """A ``MambaLM`` (ssm), ``DenseLM`` (dense, audio) or ``HybridLM``
+    (hybrid) with weights drawn from a ``torch.Generator``
+    seeded with ``seed`` on ``device`` (the card unless the caller asks
+    for the CPU), with the reference's distributions: a token model's
+    embedding N(0, 1) (tied: at scale d^-0.5) and ``lm_head`` at d^-0.5,
+    truncated at 2 sigma; norms and biases zero."""
     require_served(cfg)
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
     model = MODELS[cfg.family](cfg, dtype, dev)
     emb_scale = cfg.d_model ** -0.5 if cfg.tie_embeddings else 1.0
     with torch.no_grad():
-        model.embed.copy_(truncated_normal(model.embed.shape, emb_scale,
-                                           dtype, gen, dev))
+        if cfg.frontend == "tokens":
+            model.embed.copy_(truncated_normal(model.embed.shape, emb_scale,
+                                               dtype, gen, dev))
         if not cfg.tie_embeddings:
             model.lm_head.copy_(truncated_normal(
                 model.lm_head.shape, cfg.d_model ** -0.5, dtype, gen, dev))
@@ -396,7 +434,9 @@ def init_params(cfg: ArchConfig, seed: int = 0, dtype=torch.float32,
 
 @torch.no_grad()
 def forward(params, cfg: ArchConfig, batch: dict) -> torch.Tensor:
-    """batch: tokens (B, S).  Returns logits (B, S, vocab), from zero
-    states (ssm, hybrid) and without a cache."""
-    out = params.run(batch["tokens"])
-    return out if cfg.family == "dense" else out[0]
+    """batch: tokens (B, S), or for the audio family (``cfg.frontend ==
+    "frames"``) embeds (B, S, d) in the weights' dtype.  Returns logits
+    (B, S, vocab), from zero states (ssm, hybrid) and without a cache."""
+    out = params.run(batch["embeds" if cfg.frontend == "frames"
+                           else "tokens"])
+    return out if isinstance(params, DenseLM) else out[0]

@@ -408,7 +408,7 @@ def test_launcher_serves_dense_on_cpu(arch):
 
 
 @pytest.mark.parametrize("arch", ["gemma2-2b", "qwen2-vl-72b",
-                                  "hubert-xlarge", "qwen2-moe-a2.7b"])
+                                  "qwen2-moe-a2.7b"])
 def test_unserved_configs_name_their_slice(arch):
     """Each config the port does not serve yet is refused by the model
     (``NotImplementedError``) and by the launcher (``SystemExit``), with

@@ -7,10 +7,11 @@ host that has PyTorch but no JAX.  On the CPU it checks what the kernels
 receive (the wrappers refuse CPU tensors, ``ops`` routes them to the plain
 versions, K2's banded taps reproduce the dense weights, K5's and K6's
 plain scans carry their state across a split, K4's decode form is a row
-of its prefill form and its window keeps each row's last keys); the tests
-marked ``cuda`` launch the kernels (and run the operators, the reduced
-Falcon-Mamba, a reduced StarCoder2 and a reduced RecurrentGemma on the
-card) and skip without a card:
+of its prefill form, its window keeps each row's last keys and its
+non-causal form is refused where no path takes it); the tests marked
+``cuda`` launch the kernels (and run the operators, the reduced
+Falcon-Mamba, a reduced StarCoder2, a reduced RecurrentGemma and a reduced
+HuBERT on the card) and skip without a card:
 ``PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_kernels.py``.
 """
 
@@ -193,6 +194,29 @@ def test_attention_wrapper_refuses_cpu_and_ops_routes_to_plain():
                        attention_ref(q, k, v, window=2))
     assert torch.equal(attn_ops.gqa_attention(q[:, :1], k, v, 3, 4),
                        attention_ref(q[:, :1], k, v, 3, 4))
+
+
+def test_attention_noncausal_form_is_refused_where_no_path_takes_it():
+    """The non-causal form is a prefill form over all keys with no window:
+    K4's wrapper refuses it at Sq 1, with a window and at an offset, and
+    refuses head_dim 80 (HuBERT's, a prefill-only head dim) in the decode
+    form, before it looks at the device; ``ops`` sends CPU tensors to the
+    plain version with the flag passed through."""
+    q, k, v = _attn_inputs(2, 5, 5, 4, 2, 80)
+    with pytest.raises(ValueError, match="non-causal"):
+        K4.flash_attention(q[:, :1], k, v, 4, 5, causal=False)
+    with pytest.raises(ValueError, match="non-causal"):
+        K4.flash_attention(q, k, v, window=2, causal=False)
+    with pytest.raises(ValueError, match="prefill form"):
+        K4.flash_attention(q, k, v, k_len=4, causal=False)
+    with pytest.raises(ValueError, match="decode form is built"):
+        K4.flash_attention(q[:, :1], k, v, 4, 5)
+    with pytest.raises(ValueError, match="CUDA"):
+        K4.flash_attention(q, k, v, causal=False)
+    got = attn_ops.gqa_attention(q, k, v, causal=False)
+    assert torch.equal(got, attention_ref(q, k, v, causal=False))
+    assert not torch.equal(got, attention_ref(q, k, v))
+    assert 80 in K4.HEAD_DIMS and 80 not in K4.DECODE_HEAD_DIMS
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -582,3 +606,108 @@ def test_reduced_recurrentgemma_on_card_matches_plain_path(cuda):
     got = prefill(model, cfg, {"tokens": prompts.to(cuda)}, 45)[0]
     ref = prefill(model_cpu, cfg, {"tokens": prompts}, 45)[0]
     assert float((got.cpu() - ref).abs().max()) <= 1e-4
+
+
+def _encoder_inputs(bsz, s, h, kvh, dtype, seed, device):
+    """q, k, v as ``_attn_inputs`` makes them, with every value of the
+    keys in the last 64-key tile (from ``lo``) raised by 4, so that each
+    query row takes a share of its output from that tile: a kernel that
+    never read the tail, or a plain version with it zeroed, lies far off
+    the hold, whatever the seed.  Returns (q, k, v, lo)."""
+    q, k, v = _attn_inputs(bsz, s, s, h, kvh, 80, torch.float32, seed)
+    lo = (s - 1) // 64 * 64
+    v[:, lo:] += 4.0
+    return [t.to(dtype).to(device) for t in (q, k, v)] + [lo]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sk", [63, 64, 65, 1499])
+@pytest.mark.parametrize("h,kvh", [(16, 16), (16, 4)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_noncausal_hd80_matches_plain_on_card(cuda, sk, h,
+                                                              kvh, dtype):
+    """K4's non-causal prefill form at head_dim 80 (HuBERT-XLarge's 16
+    heads, and a GQA copy) against its plain version, element by element
+    within ``ref.HOLD``: one partial tile (63), one whole (64), a tile and
+    one key (65: key 64 alone in a tile of 63 zeroed rows, which every
+    query could see without the ``key < Sk`` mask) and HuBERT's 30-s clip
+    (1499 frames: 27 keys in the last tile).  The same hold fails for the
+    causal plain version (row 0 sees key 0 alone) and for the plain version
+    with the last tile's keys zeroed (``_encoder_inputs`` puts a share of
+    every row's output in that tile), so the kernel's agreement shows its
+    mask acted and its tail was read."""
+    q, k, v, lo = _encoder_inputs(2, sk, h, kvh, dtype, seed=sk + kvh,
+                                  device=cuda)
+    LAUNCHES.reset()
+    got = K4.flash_attention(q, k, v, causal=False)
+    torch.cuda.synchronize()
+    assert LAUNCHES.snapshot() == {K4.NONCAUSAL: 1}
+    want = attention_ref(q, k, v, causal=False)
+    assert got.dtype == dtype and got.shape == want.shape
+    assert hold_ratio(got, want) <= 1
+    assert hold_ratio(attention_ref(q, k, v), want) > 1
+    k0, v0 = k.clone(), v.clone()
+    k0[:, lo:] = 0
+    v0[:, lo:] = 0
+    assert hold_ratio(attention_ref(q, k0, v0, causal=False), want) > 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_causal_hd80_matches_plain_on_card(cuda, dtype):
+    """Head_dim 80's column layout (a float4 and a single column a lane in
+    p·v) under the causal mask too, over ragged tiles."""
+    q, k, v = _attn_inputs(2, 130, 130, 4, 2, 80, dtype, seed=80,
+                           device=cuda)
+    assert hold_ratio(K4.flash_attention(q, k, v),
+                      attention_ref(q, k, v)) <= 1
+
+
+@pytest.mark.cuda
+def test_flash_attention_c_entry_refuses_noncausal_forms_no_path_takes(cuda):
+    """The C entry itself returns cudaErrorInvalidValue (1) and launches
+    nothing for a non-causal call at Sq 1, with a window or at an offset,
+    and for head_dim 80 in the decode form; the wrapper refuses the same
+    before it calls it."""
+    fn = K4._kernel()
+    stream = torch.cuda.current_stream(cuda).cuda_stream
+    q, k, v = _attn_inputs(1, 8, 8, 2, 2, 80, device=cuda)
+    out = torch.zeros_like(q)
+
+    def call(sq, q_offset, k_len, window, causal):
+        return fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                  1, sq, 8, 2, 2, 80, q_offset, k_len, window, causal,
+                  80 ** -0.5, 0, stream)
+
+    assert call(1, 7, 8, 0, 0) == 1
+    assert call(8, 0, 8, 4, 0) == 1
+    assert call(8, 1, 8, 0, 0) == 1
+    assert call(8, 0, 7, 0, 0) == 1
+    assert call(1, 7, 8, 0, 1) == 1  # hd 80 has no decode form
+    torch.cuda.synchronize()
+    assert not out.any()
+    assert call(8, 0, 8, 0, 0) == 0
+    torch.cuda.synchronize()
+    assert hold_ratio(out, attention_ref(q, k, v, causal=False)) <= 1
+
+
+@pytest.mark.cuda
+def test_reduced_hubert_on_card_matches_plain_path(cuda):
+    """A reduced HuBERT at head_dim 80 (d 160, 2 heads): the encoder's
+    forward on the card (K4 once per layer, non-causal) gives the CPU plain
+    path's logits within 1e-4 of their largest magnitude."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import forward, init_params
+
+    cfg = get_config("hubert-xlarge").reduced(n_layers=3, d_model=160,
+                                              n_heads=2)
+    model_cpu = init_params(cfg, seed=0, device="cpu")
+    model = init_params(cfg, seed=0, device="cpu").to(cuda)
+    x = torch.randn((2, 99, 160), generator=torch.Generator().manual_seed(2))
+    LAUNCHES.reset()
+    got = forward(model, cfg, {"embeds": x.to(cuda)})
+    torch.cuda.synchronize()
+    assert LAUNCHES.snapshot() == {K4.NONCAUSAL: cfg.n_layers}
+    ref = forward(model_cpu, cfg, {"embeds": x})
+    assert float((got.cpu() - ref).abs().max()) <= \
+        1e-4 * float(ref.abs().max())
