@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one card.
 
-Five paths, each through the entry points a user calls, each with the
+Six paths, each through the entry points a user calls, each with the
 launch counters zeroed just before it and read just after: the video path
 (below), the serving phase (Falcon-Mamba-7B), the dense serving phase
-(StarCoder2-3B), the hybrid serving phase (RecurrentGemma-9B) and the
-audio phase (HuBERT-XLarge's encoder), further below.
+(StarCoder2-3B), the hybrid serving phase (RecurrentGemma-9B), the audio
+phase (HuBERT-XLarge's encoder) and the gemma2 serving phase (Gemma2-2B),
+further below.
 
 Drives the port's main path at the paper's 720p30 through the entry points
 a user calls: ``VideoStore.ingest_segment`` writes 4 segments of
@@ -55,8 +56,10 @@ prefill and 4 profiled decode steps then report the card's kernel time
 against the timed run's wall time (its busy share).  Then, with
 f32 weights and a 128-token prompt, it holds the kernel route against the
 same model with the plain scan forced on the card (logits within 1e-3 of
-their largest magnitude, greedy tokens equal) and 124-token prefill + 4
-decode steps against the full forward (the same bound), and K5 against its
+their largest magnitude, greedy tokens equal, ``generate`` serving over
+the launcher's bf16 cache in every serving phase's hold) and 124-token
+prefill + 4 decode steps over an f32 cache against the full forward (the
+same bound), and K5 against its
 plain version at one layer's prefill shape (4, 2048, 8192, n 16), at n 8,
 and at S = 1 from a non-zero state (within 1e-5 of the largest value).
 
@@ -114,6 +117,32 @@ shape (8, 1499, 16, 80), element by element within ``ref.HOLD``, in bf16
 and f32; the causal plain version and the plain version with keys
 1472..1498 (the last, partial key tile) zeroed must fail that hold.  K4 is
 timed beside ``F.scaled_dot_product_attention(is_causal=False)``.
+
+The gemma2 serving phase serves ``gemma2-2b`` at its published width and
+depth (26 layers alternating local, window 4096, and global attention; d
+2304, 8 heads over 4 KV heads of 256, GeGLU d_ff 9216, vocab 256000 tied;
+attention soft-cap 50, final soft-cap 30, post-norms; arXiv:2408.00118)
+with bf16 weights drawn from a seed on the card: ``generate`` prefills a
+batch of 2 random 8,160-token prompts and decodes 32 greedy tokens, which
+fills gemma2's 8,192-token context, after one untimed warm-up; the window
+masks in the prefill and in every decode step.  K4's capped form must
+launch 13 times and its capped windowed form 13 times for the prefill and
+for each serve step, its uncapped forms never.  Then, with f32 weights,
+batch 1 and a 4,200-token prompt, it holds a 4,192-token prefill + 8
+decode steps over an f32 cache against the full forward, and the kernel
+route against K4's plain version over the launcher's bf16 cache; and K4's
+capped forms against their plain versions at the phase's shapes, element
+by element within ``ref.HOLD``: the prefill form with and without the
+window (bf16 and f32), the decode form over a cache at length 8,161 with
+and without the window (bf16), and the decode form with an f32 query over
+that bf16 cache, with inputs whose scores exceed the cap in every query
+row by construction; the plain version without the cap, and without the
+window, must fail the hold.  The capped forms are timed beside their plain
+versions; the prefill forms also beside ``flex_attention`` with the
+soft-cap as its score_mod and the causal or windowed block mask (one
+PyTorch call of the same function, held by ``ref.HOLD`` in f32 as K4 is;
+its bf16 time is ``library_ms``) and beside
+``F.scaled_dot_product_attention`` of the uncapped function.
 
 Prints the queries' x-realtime, each serving phase's prefill time and
 decode rate, the audio phase's encode time, a ``{"kernels": [...]}`` line,
@@ -174,6 +203,11 @@ LRU_TOL = 2 ** -20
 AUDIO_ARCH = "hubert-xlarge"
 AUDIO_BATCH, AUDIO_FRAMES, AUDIO_CLIP_S = 8, 1499, 30.0
 AUDIO_TIMED, AUDIO_HOLD_BATCH = 3, 2
+# the gemma2 serving phase: Gemma2-2B at full width, bf16 weights and KV
+# cache; 8,160-token prompts + 32 new tokens fill its 8,192-token context
+GEMMA2_ARCH = "gemma2-2b"
+GEMMA2_BATCH, GEMMA2_PROMPT = 2, 8160
+GEMMA2_HOLD_PROMPT, GEMMA2_HOLD_DECODE = 4200, 8  # 4192 prefilled > window
 
 
 def card_line() -> str:
@@ -464,11 +498,12 @@ def plain_versions(plains):
 
 def hold_serve(torch, check, model, cfg, hold, n_decode, plains):
     """With f32 weights on the prompts ``hold`` (B, P): prefill of all but
-    ``n_decode`` tokens plus that many decode steps against the full
-    forward, then the kernel route against the same model with each
-    ``module.name`` of ``plains`` (module, name, plain) bound to its plain
-    version: forward logits within ``LOGIT_TOL`` of the largest |logit|,
-    greedy tokens equal."""
+    ``n_decode`` tokens plus that many decode steps over an f32 cache
+    against the full forward, then the kernel route against the same model
+    with each ``module.name`` of ``plains`` (module, name, plain) bound to
+    its plain version: forward logits within ``LOGIT_TOL`` of the largest
+    |logit|, the greedy tokens of ``generate`` (over the launcher's bf16
+    cache) equal."""
     from repro_torch.launch.serve import generate
     from repro_torch.models import decode_step, forward, prefill
 
@@ -1057,6 +1092,238 @@ def audio_phase(torch, check, cfg, dev) -> dict:
             "library_ms": time_ms(torch, library, 10)}
 
 
+def capped_inputs(torch, dev, bsz, sq, sk, h, kvh, d, seed, q_offset, cap):
+    """``attention_inputs`` in f32 with the keys 30 times larger (scores
+    spread far past ``cap``) and key row ``q_offset + i`` a multiple of
+    query row i (``ref.scores_over_cap``: a score of ``2·cap`` in every
+    query row)."""
+    from repro_torch.kernels.attention.ref import scores_over_cap
+
+    q, k, v = attention_inputs(torch, dev, bsz, sq, sk, h, kvh, d, seed,
+                               torch.float32)
+    return q, scores_over_cap(q, 30 * k, cap, q_offset), v
+
+
+def flex_capped(torch, qt, kt, vt, window, cap):
+    """K4's capped causal function, with ``window`` > 0 its band, as one
+    PyTorch call for ``library_ms``: ``flex_attention`` with the soft-cap
+    ``cap·tanh(s/cap)`` as its score_mod and the mask as its block mask,
+    compiled once (one compile thread, its caches in the build directory).
+    qt (B, H, S, hd), kt/vt (B, KV, S, hd).  Returns the call."""
+    import torch._inductor.config as inductor_config
+    from torch.nn.attention.flex_attention import (create_block_mask,
+                                                   flex_attention)
+
+    from repro_torch.kernels.build import BUILD_DIR
+
+    os.environ.setdefault("TORCHINDUCTOR_CACHE_DIR",
+                          os.path.join(BUILD_DIR, "inductor"))
+    os.environ.setdefault("TRITON_CACHE_DIR", os.path.join(BUILD_DIR,
+                                                           "triton"))
+    inductor_config.compile_threads = 1
+    s = qt.shape[2]
+
+    def softcap(score, b, h, q_idx, kv_idx):
+        return cap * torch.tanh(score / cap)
+
+    def mask(b, h, q_idx, kv_idx):
+        keep = q_idx >= kv_idx
+        return keep & (q_idx - kv_idx < window) if window else keep
+
+    block_mask = create_block_mask(mask, None, None, s, s, device=qt.device)
+    flex = torch.compile(flex_attention, dynamic=False)
+    return lambda: flex(qt, kt, vt, score_mod=softcap, block_mask=block_mask,
+                        scale=qt.shape[-1] ** -0.5, enable_gqa=True)
+
+
+def gemma2_serving_phase(torch, check, cfg, dev) -> list[dict]:
+    """``cfg`` (Gemma2-2B) served on ``dev`` with a bf16 KV cache, the
+    kernel route held against K4's plain version and decode against
+    forward past the window, and K4's capped forms (prefill and decode,
+    with and without the window, and an f32 query over a bf16 cache) held
+    and timed against their plain versions, the prefill forms beside
+    ``flex_attention`` of the same function (the rows' ``library_ms``) and
+    SDPA of the uncapped function.  Returns the ``kernels`` rows of the
+    capped form and the capped windowed form."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.attention.attention import (
+        CAPPED, CAPPED_WINDOWED, flash_attention)
+    from repro_torch.kernels.attention.ref import (HOLD, attention_ref,
+                                                   hold_ratio)
+    from repro_torch.models import attention, init_params
+
+    hd, h, kvh = cfg.resolved_head_dim, cfg.n_heads, cfg.n_kv_heads
+    win, cap = cfg.local_window, cfg.logit_softcap
+    kinds = [cfg.layer_kind(i) for i in range(cfg.n_layers)]
+    n_local, n_global = kinds.count("local_attn"), kinds.count("attn")
+    print(f"serve: {cfg.name}, {cfg.n_layers} layers ({n_local} local, "
+          f"window {win}; {n_global} global), d_model {cfg.d_model}, {h} "
+          f"heads over {kvh} KV heads of {hd}, {cfg.act} d_ff {cfg.d_ff}, "
+          f"vocab {cfg.vocab_size} tied, caps {cap} / {cfg.final_softcap}, "
+          f"post-norms, {cfg.param_count() / 1e9:.2f} B params", flush=True)
+    model, prompts = served_model(torch, cfg, dev, GEMMA2_BATCH,
+                                  GEMMA2_PROMPT)
+
+    # -- the timed serve, counted, and its profile ----------------------
+    toks, launches, t_prefill, t_decode = timed_serve(
+        torch, check, model, cfg, prompts,
+        {CAPPED: n_global, CAPPED_WINDOWED: n_local})
+    check(launches.get("flash_attention", 0) == 0,
+          f"serve {cfg.name}: K4's uncapped form launched "
+          f"{launches.get('flash_attention', 0)} times (0 expected)")
+    profile_serve(torch, model, cfg, prompts, toks, t_prefill, t_decode)
+    del model
+    free_card(torch)
+
+    # -- hold on the card: f32 weights, one prompt past the window --------
+    model = init_params(cfg, SERVE_SEED, torch.float32, dev)
+    hold_serve(torch, check, model, cfg, prompts[:1, :GEMMA2_HOLD_PROMPT],
+               GEMMA2_HOLD_DECODE,
+               [(attention, "gqa_attention", attention_ref)])
+    del model
+    free_card(torch)
+
+    # -- K4's capped forms against their plain versions, with mutants ------
+    b, s = GEMMA2_BATCH, GEMMA2_PROMPT
+    length = s + 1  # the decode form at the first step's cache length
+    cache = s + SERVE_NEW
+    forms = (("prefill", (b, s, s, h, kvh, hd), 0, s, 0),
+             (f"prefill, window {win}", (b, s, s, h, kvh, hd), 0, s, win),
+             (f"decode over {length} keys", (b, 1, cache, h, kvh, hd),
+              length - 1, length, 0),
+             (f"decode over {length} keys, window {win}",
+              (b, 1, cache, h, kvh, hd), length - 1, length, win))
+    # (form, q dtype, k/v dtype): bf16 in every form, f32 in the prefill
+    # forms, an f32 q over a bf16 cache in the decode forms
+    bf16, f32 = torch.bfloat16, torch.float32
+    holds = ([(i, bf16, bf16) for i in range(4)]
+             + [(i, f32, f32) for i in (0, 1)]
+             + [(i, f32, bf16) for i in (2, 3)])
+    cases, errs, flex_ratio = {}, {}, {}
+    for i, q_dtype, kv_dtype in holds:
+        name, shape, q_offset, k_len, window = forms[i]
+        label = (str(q_dtype)[6:] if q_dtype == kv_dtype
+                 else "f32 q, bf16 k/v")
+        q, k, v = capped_inputs(torch, dev, *shape, i + 30, q_offset, cap)
+        q, k, v = q.to(q_dtype), k.to(kv_dtype), v.to(kv_dtype)
+        got = flash_attention(q, k, v, q_offset, k_len, window,
+                              logit_cap=cap)
+        want = attention_ref(q, k, v, q_offset, k_len, window,
+                             logit_cap=cap)
+        ratio = hold_ratio(got, want)
+        errs[name, label] = float((got.float() - want.float()).abs().max())
+        u, r = HOLD[want.dtype]
+        check(ratio <= 1 and got.dtype == q.dtype,
+              f"K4 flash_attention capped vs plain, {name}: q "
+              f"{tuple(q.shape)} {str(q.dtype)[6:]}, k/v "
+              f"{tuple(k.shape)} {str(k.dtype)[6:]}, max |d| "
+              f"{errs[name, label]:.3g}, at most {ratio:.3g} of the "
+              f"bound {u:.3g}·|want| + {r:.3g}·rms(row)")
+        bad = hold_ratio(attention_ref(q, k, v, q_offset, k_len, window),
+                         want)
+        check(bad > 1, f"K4 hold, {name} ({label}): the plain version "
+              f"without the cap stands at {bad:.3g} of the bound, so it "
+              f"fails")
+        if window:
+            bad = hold_ratio(attention_ref(q, k, v, q_offset, k_len,
+                                           logit_cap=cap), want)
+            check(bad > 1, f"K4 hold, {name} ({label}): the plain "
+                  f"version without the window stands at {bad:.3g} of "
+                  f"the bound, so it fails")
+        if q_dtype == f32 == kv_dtype:
+            # the library call of the rows below computes K4's function:
+            # held like K4 in f32, where its arithmetic is exact enough
+            # (in bf16 it rounds the probabilities, as SDPA does)
+            qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+            flex_ratio[name] = hold_ratio(flex_capped(
+                torch, qt, kt, vt, window, cap)().transpose(1, 2), want)
+            check(flex_ratio[name] <= 1,
+                  f"flex_attention vs K4's plain version, {name} (f32): at "
+                  f"most {flex_ratio[name]:.3g} of the bound")
+            del qt, kt, vt
+        if q_dtype != kv_dtype or q_dtype == bf16:
+            cases[name, label] = (q, k, v)
+        del q, k, v, got, want
+        free_card(torch)
+
+    clock = max_sm_clock_hz()
+    t_sfu_pair = 2 / (SFU_PER_SM_CLOCK * SMS * clock)  # an exp and a tanh
+    rows, timings = [], []
+    for (name, shape, q_offset, k_len, window), key in (
+            (forms[0], CAPPED), (forms[1], CAPPED_WINDOWED)):
+        q, k, v = cases[name, "bfloat16"]
+        pairs = b * h * sum(min(i + 1, window or s) for i in range(s))
+        flops = 4 * hd * pairs
+        nbytes = 2 * (q.numel() + k.numel()) * q.element_size()
+        t_ops, t_bytes = flops / PEAK_BF16_FLOP_S, nbytes / PEAK_BYTES_S
+        t_sfu = pairs * t_sfu_pair
+        qt = q.transpose(1, 2).contiguous()
+        kt, vt = (t.transpose(1, 2).contiguous() for t in (k, v))
+        if window:
+            pos = torch.arange(s, device=dev)
+            band = (pos[:, None] >= pos[None, :]) & (
+                pos[:, None] - pos[None, :] < window)
+
+            def library(qt=qt, kt=kt, vt=vt, band=band):
+                return F.scaled_dot_product_attention(
+                    qt, kt.repeat_interleave(h // kvh, dim=1),
+                    vt.repeat_interleave(h // kvh, dim=1), attn_mask=band)
+        else:
+            def library(qt=qt, kt=kt, vt=vt):
+                return F.scaled_dot_product_attention(
+                    qt, kt, vt, is_causal=True, enable_gqa=True)
+        flex = flex_capped(torch, qt, kt, vt, window, cap)
+        ms = time_ms(torch, lambda: flash_attention(
+            q, k, v, window=window, logit_cap=cap), 10)
+        plain_ms = time_ms(torch, lambda: attention_ref(
+            q, k, v, window=window, logit_cap=cap), 3)
+        sdpa_ms = time_ms(torch, library, 10)
+        flex_ms = time_ms(torch, flex, 10)
+        bound = max(t_ops, t_bytes, t_sfu) * 1e3
+        print(f"K4 capped {name} at q {tuple(q.shape)}, k/v {tuple(k.shape)} "
+              f"bf16, cap {cap}: {pairs:.4g} (q, k) pairs x 4·{hd} = "
+              f"{flops / 1e9:.1f} GFLOP -> {t_ops * 1e3:.4f} ms at 989 "
+              f"TFLOP/s bf16 ({flops / PEAK_FP32_FLOP_S * 1e3:.3f} ms at 67 "
+              f"TFLOP/s fp32); {nbytes / 1e6:.1f} MB -> {t_bytes * 1e3:.4f} "
+              f"ms; {2 * pairs:.4g} exp and tanh on the SFUs at "
+              f"{clock / 1e9:.3f} GHz -> {t_sfu * 1e3:.4f} ms.  Kernel "
+              f"{ms:.4f} ms ({ms / bound:.1f}x the bound), plain "
+              f"{plain_ms:.4f} ms, flex_attention with the cap "
+              f"{flex_ms:.4f} ms (in f32 at {flex_ratio[name]:.3g} of the "
+              f"hold), SDPA of the uncapped function {sdpa_ms:.4f} ms",
+              flush=True)
+        del qt, kt, vt, flex
+        form = f"capped, window {window}" if window else "capped"
+        rows.append({"name": f"flash_attention ({form}, head_dim {hd})",
+                     "route": "cuda",
+                     "source": "src/repro_torch/csrc/attention.cu",
+                     "replaces": "src/repro/kernels/attention/attention.py:80",
+                     "launches": launches.get(key, 0),
+                     "max_abs_err": max(e for (n, _), e in errs.items()
+                                        if n == name),
+                     "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+                     "bound_by": "bytes" if t_bytes >= max(t_ops, t_sfu)
+                     else "operations",
+                     "library_ms": flex_ms})
+    for name, _, q_offset, k_len, window in forms[2:]:
+        for label in ("bfloat16", "f32 q, bf16 k/v"):
+            q, k, v = cases[name, label]
+            keys = min(k_len, window or k_len)
+            nbytes = 2 * b * keys * kvh * hd * k.element_size()
+            ms = time_ms(torch, lambda: flash_attention(
+                q, k, v, q_offset, k_len, window, logit_cap=cap), 50)
+            plain_ms = time_ms(torch, lambda: attention_ref(
+                q, k, v, q_offset, k_len, window, logit_cap=cap), 10)
+            timings.append(
+                f"{name} ({label}): {ms:.4f} ms, plain {plain_ms:.4f} ms "
+                f"({'slower' if ms > plain_ms else 'faster'} than its plain "
+                f"version), reads {nbytes / 1e6:.2f} MB of cache, bound "
+                f"{nbytes / PEAK_BYTES_S * 1e3:.4f} ms")
+    print("K4 capped decode forms: " + "; ".join(timings), flush=True)
+    return rows
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -1326,8 +1593,13 @@ def main() -> int:
     free_card(torch)
     t0 = time.perf_counter()
     rows.append(audio_phase(torch, check, get_config(AUDIO_ARCH), dev))
-    print(f"audio phase: {time.perf_counter() - t0:.1f} s; whole run "
-          f"{time.perf_counter() - t_start:.1f} s", flush=True)
+    print(f"audio phase: {time.perf_counter() - t0:.1f} s", flush=True)
+    free_card(torch)
+    t0 = time.perf_counter()
+    rows.extend(gemma2_serving_phase(torch, check, get_config(GEMMA2_ARCH),
+                                     dev))
+    print(f"gemma2 serving phase: {time.perf_counter() - t0:.1f} s; whole "
+          f"run {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
 
     if failures:

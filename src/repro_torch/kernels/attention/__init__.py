@@ -1,1 +1,2 @@
-"""attention kernel: K4 (flash attention, causal, GQA, sliding window, over a KV cache)."""
+"""attention kernel: K4 (flash attention: causal or not, GQA, sliding
+window, logit soft-cap, over a prompt or a KV cache)."""

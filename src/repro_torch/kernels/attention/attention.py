@@ -1,32 +1,39 @@
 """K4: GQA flash attention -- causal, with an optional sliding window over
-a prompt, or non-causal over a whole sequence -- as a hand-written CUDA
-kernel (``csrc/attention.cu``), replacing the Pallas kernel
+a prompt or over a linear KV cache, or non-causal over a whole sequence,
+each with an optional logit soft-cap -- as a hand-written CUDA kernel
+(``csrc/attention.cu``), replacing the Pallas kernel
 ``src/repro/kernels/attention/attention.py::flash_attention``.
 
 The TPU kernel takes q, k, v of shape (B, H, S, hd) with equal head
-counts (its wrapper repeats the KV heads) and counts query positions from
-0.  This one takes the model's layouts -- q (B, Sq, H, hd), k and v
-(B, Sk, KV, hd) -- reads KV head ``h // (H / KV)`` for query head h
-without repeating it, and takes two scalars: ``q_offset``, the absolute
-position of query row 0, and ``k_len``, the number of valid keys.  Over
-a prompt (Sq > 1) it takes ``q_offset = 0`` and ``k_len = Sk`` only, and
-computes the TPU kernel's causal function, with its sliding ``window``
-when one is given (RecurrentGemma's local attention); with Sq = 1,
+counts (its wrapper repeats the KV heads), casts each to float32 on its
+own and counts query positions from 0.  This one takes the model's
+layouts -- q (B, Sq, H, hd), k and v (B, Sk, KV, hd) -- reads KV head
+``h // (H / KV)`` for query head h without repeating it, and takes two
+scalars: ``q_offset``, the absolute position of query row 0, and
+``k_len``, the number of valid keys.  Over a prompt (Sq > 1) it takes
+``q_offset = 0``, ``k_len = Sk`` and one dtype only, and computes the TPU
+kernel's causal function, with its sliding ``window`` when one is given
+(RecurrentGemma's and gemma2's local attention); with Sq = 1,
 ``q_offset = len - 1`` and ``k_len = len`` over a KV cache or a ring
-buffer it computes the reference's ``decode_attention`` without a window.
-A prompt chunk over a cache (Sq > 1 at an offset) and a window in the
-decode form are no served path's and are refused.  With ``causal=False``
-(the audio family's encoder) it computes the TPU kernel's non-causal
-function over a whole sequence: the prefill form at ``q_offset = 0`` and
-``k_len = Sk`` with no window, the only mask ``j < Sk``; head_dim 80
-(HuBERT-XLarge) is built for that prefill form only.  The TPU kernel's
-logit soft-cap and gemma2's windowed decode over a linear cache are left
-to the gemma2 slice.
+buffer it computes the reference's ``decode_attention``, with its window
+over a linear cache (gemma2's local layers: keys ``len - window`` ..
+``len - 1``) and with a float32 q over a bfloat16 cache (float32 weights
+over the reference's default cache).  ``logit_cap`` > 0 soft-caps the
+float32 scores, ``cap * tanh(s / cap)``, before the mask (gemma2's 50).
+A prompt chunk over a cache (Sq > 1 at an offset), a window in the decode
+form with the query anywhere but at the cache's last valid position,
+mixed dtypes in the prefill form and a bfloat16 q over a float32 cache
+are no served path's and are refused.  With ``causal=False`` (the audio
+family's encoder) it computes the TPU kernel's non-causal function over a
+whole sequence: the prefill form at ``q_offset = 0`` and ``k_len = Sk``
+with no window, the only mask ``j < Sk``; head_dim 80 (HuBERT-XLarge) is
+built for that prefill form only.
 
 The wrapper takes CUDA tensors only, checks them, allocates the output
 with ``torch.empty``, launches on the current stream and raises if the
-launch was refused.  The plain version is in ``ref.py``; ``ops.py`` picks
-by device.
+launch was refused.  Each launch counts in ``build.LAUNCHES`` under the
+key of its form (``launch_key``).  The plain version is in ``ref.py``;
+``ops.py`` picks by device.
 """
 
 from __future__ import annotations
@@ -38,26 +45,50 @@ import torch
 
 from ..build import LAUNCHES, LIBRARIES, check_launch
 
-#: head dims the kernel is instantiated for (smollm / qwen1.5 64,
-#: hubert 80, starcoder2 128, recurrentgemma 256)
-HEAD_DIMS = (64, 80, 128, 256)
+#: head dims the kernel is instantiated for (the reduced launcher's 32,
+#: smollm / qwen1.5 64, hubert 80, starcoder2 128, recurrentgemma and
+#: gemma2 256)
+HEAD_DIMS = (32, 64, 80, 128, 256)
 #: head dims of the decode form (Sq = 1), where a thread takes one of hd
 #: columns of a 256-thread block: hd divides 256
-DECODE_HEAD_DIMS = (64, 128, 256)
-#: the launch counter of the non-causal form (``build.LAUNCHES``), apart
+DECODE_HEAD_DIMS = (32, 64, 128, 256)
+#: the launch counters (``build.LAUNCHES``) of the non-causal form and of
+#: the causal capped forms (gemma2's, without and with a window), apart
 #: from the causal form's ``"flash_attention"``, so that a run can show
 #: which form it launched
 NONCAUSAL = "flash_attention (non-causal)"
+CAPPED = "flash_attention (capped)"
+CAPPED_WINDOWED = "flash_attention (capped, windowed)"
 #: query heads per KV head that the decode form (Sq = 1) serves in one block
 MAX_DECODE_GROUPS = 16
 _TYPES = (torch.float32, torch.bfloat16)
 
 
+def cache_dtypes(q_dtype) -> tuple:
+    """The k/v dtypes the decode form takes under a q of ``q_dtype``: its
+    own, and bfloat16 under a float32 q (float32 weights over the
+    reference's default cache); none for a dtype the kernel does not
+    take."""
+    if q_dtype not in _TYPES:
+        return ()
+    return _TYPES if q_dtype == torch.float32 else (q_dtype,)
+
+
+def launch_key(causal: bool = True, window: int = 0,
+               logit_cap: float = 0.0) -> str:
+    """The ``build.LAUNCHES`` key a launch of this form counts under."""
+    if not causal:
+        return NONCAUSAL
+    if logit_cap:
+        return CAPPED_WINDOWED if window else CAPPED
+    return "flash_attention"
+
+
 @functools.cache
 def _kernel():
     fn = LIBRARIES.get("attention").flash_attention
-    ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [ptr] * 4 + [i32] * 10 + [ctypes.c_float, i32, ptr]
+    ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    fn.argtypes = [ptr] * 4 + [i32] * 10 + [f32, f32, i32, i32, ptr]
     fn.restype = ctypes.c_int
     return fn
 
@@ -75,27 +106,36 @@ def _check(t: torch.Tensor, name: str, shape: tuple, dtype) -> None:
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     q_offset: int = 0, k_len: int | None = None,
-                    window: int = 0, causal: bool = True) -> torch.Tensor:
-    """q (B, Sq, H, hd); k, v (B, Sk, KV, hd); one dtype, float32 or
-    bfloat16, on the card.  Query row i sits at position ``q_offset + i``
-    and sees key j when ``j < k_len`` (default Sk) and, if ``causal``,
-    ``j <= q_offset + i`` and, with ``window`` > 0, ``q_offset + i - j <
-    window``; with Sq > 1, ``q_offset`` must be 0 and ``k_len`` Sk, with
-    Sq = 1 ``window`` 0 and hd one of ``DECODE_HEAD_DIMS``.  Not
-    ``causal``: Sq > 1 and no window.  Returns (B, Sq, H, hd) in q's
-    dtype."""
+                    window: int = 0, causal: bool = True,
+                    logit_cap: float = 0.0) -> torch.Tensor:
+    """q (B, Sq, H, hd); k, v (B, Sk, KV, hd) of one dtype, float32 or
+    bfloat16, on the card; q of k's dtype, or with Sq = 1 float32 over a
+    bfloat16 k/v.  Query row i sits at position ``q_offset + i`` and sees
+    key j when ``j < k_len`` (default Sk) and, if ``causal``, ``j <=
+    q_offset + i`` and, with ``window`` > 0, ``q_offset + i - j <
+    window``; its scores ``s`` become ``logit_cap * tanh(s / logit_cap)``
+    when ``logit_cap`` > 0.  With Sq > 1, ``q_offset`` must be 0 and
+    ``k_len`` Sk; with Sq = 1, hd one of ``DECODE_HEAD_DIMS`` and, with a
+    window, ``q_offset = k_len - 1``.  Not ``causal``: Sq > 1 and no
+    window.  Returns (B, Sq, H, hd) in q's dtype."""
     if q.dim() != 4 or k.dim() != 4:
         raise ValueError("flash_attention takes (B, S, heads, hd) inputs")
     bsz, sq, h, hd = q.shape
     sk, kvh = k.shape[1], k.shape[2]
     k_len = sk if k_len is None else int(k_len)
     q_offset, window = int(q_offset), int(window)
+    logit_cap = float(logit_cap)
     if hd not in HEAD_DIMS:
         raise ValueError(f"flash_attention is built for head dims "
                          f"{HEAD_DIMS}, got {hd}")
-    if q.dtype not in _TYPES:
+    if q.dtype not in _TYPES or k.dtype not in _TYPES:
         raise ValueError(f"flash_attention takes float32 or bfloat16, got "
-                         f"{q.dtype}")
+                         f"q {q.dtype}, k {k.dtype}")
+    if q.dtype != k.dtype and (sq > 1
+                               or k.dtype not in cache_dtypes(q.dtype)):
+        raise ValueError(f"flash_attention: q and k/v of different dtypes "
+                         f"({q.dtype}, {k.dtype}) are taken in the decode "
+                         f"form only, as a float32 q over a bfloat16 cache")
     if min(bsz, sq, h, kvh) <= 0 or h % kvh:
         raise ValueError(f"flash_attention: bad shapes q {tuple(q.shape)}, "
                          f"k {tuple(k.shape)}")
@@ -105,9 +145,14 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if sq > 1 and (q_offset, k_len) != (0, sk):
         raise ValueError(f"flash_attention: the prefill form (Sq {sq}) takes "
                          f"q_offset 0 and k_len {sk}, got {q_offset}, {k_len}")
-    if window < 0 or (sq == 1 and window):
-        raise ValueError(f"flash_attention: the decode form takes no window "
-                         f"and a window is >= 0, got {window} at Sq {sq}")
+    if window < 0 or (sq == 1 and window and q_offset != k_len - 1):
+        raise ValueError(f"flash_attention: a window is >= 0, and the decode "
+                         f"form takes one with its query at the cache's last "
+                         f"valid position (q_offset {k_len - 1}), got window "
+                         f"{window}, q_offset {q_offset}")
+    if not logit_cap >= 0:
+        raise ValueError(f"flash_attention: logit_cap must be >= 0 (0: "
+                         f"none), got {logit_cap}")
     if not causal and (sq == 1 or window):
         raise ValueError(f"flash_attention: the non-causal form is a prefill "
                          f"form with no window, got Sq {sq}, window {window}")
@@ -119,15 +164,15 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"{MAX_DECODE_GROUPS} query heads per KV head, got "
                          f"{h // kvh}")
     _check(q, "q", (bsz, sq, h, hd), q.dtype)
-    _check(k, "k", (bsz, sk, kvh, hd), q.dtype)
-    _check(v, "v", (bsz, sk, kvh, hd), q.dtype)
+    _check(k, "k", (bsz, sk, kvh, hd), k.dtype)
+    _check(v, "v", (bsz, sk, kvh, hd), k.dtype)
     out = torch.empty_like(q)
     rc = _kernel()(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), bsz, sq,
         sk, h, kvh, hd, q_offset, k_len, window, int(bool(causal)),
-        hd ** -0.5,
-        int(q.dtype == torch.bfloat16),
+        hd ** -0.5, logit_cap, int(q.dtype == torch.bfloat16),
+        int(k.dtype == torch.bfloat16),
         torch.cuda.current_stream(q.device).cuda_stream)
     check_launch("flash_attention", rc)
-    LAUNCHES.add("flash_attention" if causal else NONCAUSAL)
+    LAUNCHES.add(launch_key(causal, window, logit_cap))
     return out

@@ -9,9 +9,10 @@ on axis 0.
 * ssm: ``blocks/ln1`` (L, d) and ``blocks/ssm/{in_proj, ...}``.
   ``blocks/ln2`` is dropped: the reference initialises it for every family
   but the ssm family has no FFN and never reads it.
-* dense: ``blocks/ln1``, ``blocks/ln2`` (L, d),
-  ``blocks/attn/{wq, wk, wv, wo}`` and, with qkv bias, ``{bq, bk, bv}``,
-  and ``blocks/mlp/{wi, wo}`` plus ``wg`` for the gated MLP.
+* dense: ``blocks/ln1``, ``blocks/ln2`` (L, d), with gemma2's post-norms
+  ``blocks/pn1``, ``blocks/pn2`` (L, d), ``blocks/attn/{wq, wk, wv, wo}``
+  and, with qkv bias, ``{bq, bk, bv}``, and ``blocks/mlp/{wi, wo}`` plus
+  ``wg`` for the gated MLP.
 * hybrid: two stacked groups, ``blocks/rglru`` (one entry per RG-LRU
   layer: ``ln1``, ``ln2``, ``rglru/{wx, wy, conv, w_input_gate,
   w_rec_gate, a_param, wo}``, ``mlp/{wi, wg, wo}``) and ``blocks/attn``
@@ -60,7 +61,8 @@ def _copy_blocks(modules, blocks: dict, mixer: str, cfg: ArchConfig,
                  path: str) -> None:
     """Copy a stacked group of the reference's blocks (leaves carrying the
     layers on axis 0) into the port's blocks, one per layer: ``ln1``, the
-    ``mixer`` leaves and, but for the ssm family, ``ln2`` and the MLP."""
+    ``mixer`` leaves and, but for the ssm family, ``ln2``, the post-norms
+    ``pn1`` and ``pn2`` where ``cfg.post_norm`` and the MLP."""
     leaves = {"ssm": _SSM_LEAVES, "rglru": _RGLRU_LEAVES,
               "attn": _ATTN_LEAVES + (_BIAS_LEAVES if cfg.qkv_bias else ())}
     for i, block in enumerate(modules):
@@ -70,7 +72,9 @@ def _copy_blocks(modules, blocks: dict, mixer: str, cfg: ArchConfig,
                   blocks[mixer][name][i], f"{path}/{mixer}/{name}[{i}]")
         if mixer == "ssm":  # no FFN: the reference's ln2 is never read
             continue
-        _copy(block.ln2, blocks["ln2"][i], f"{path}/ln2[{i}]")
+        for name in ("ln2",) + (("pn1", "pn2") if cfg.post_norm else ()):
+            _copy(getattr(block, name), blocks[name][i],
+                  f"{path}/{name}[{i}]")
         for name in ("wi", "wo") + (("wg",) if GATED[cfg.act] else ()):
             _copy(getattr(block.mlp, name), blocks["mlp"][name][i],
                   f"{path}/mlp/{name}[{i}]")

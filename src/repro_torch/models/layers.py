@@ -1,7 +1,8 @@
 """Shared neural layers of the port (``src/repro/models/layers.py``):
-truncated-normal init, zero-centred RMSNorm, logit soft-capping, RoPE and
-the MLPs of the dense and hybrid families (SiLU-gated, plain GeLU and
-GeGLU).  M-RoPE waits for the vlm slice (ROADMAP §1)."""
+truncated-normal init, zero-centred RMSNorm, logit soft-capping, RoPE, the
+MLPs of the dense and hybrid families (SiLU-gated, plain GeLU and GeGLU)
+and ``matmul``, the product with the reference's type promotion.  M-RoPE
+waits for the vlm slice (ROADMAP §1)."""
 
 from __future__ import annotations
 
@@ -36,6 +37,17 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor,
     var = torch.mean(torch.square(xf), dim=-1, keepdim=True)
     y = xf * torch.rsqrt(var + eps)
     return (y * (1.0 + weight)).to(x.dtype)
+
+
+def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` as the reference's jnp product computes it for operands of
+    two dtypes: both promoted to the wider one (float32 activations over
+    bfloat16 weights give a float32 product).  A plain ``@`` when the
+    dtypes agree, as they do on every served path."""
+    if x.dtype != w.dtype:
+        dtype = torch.promote_types(x.dtype, w.dtype)
+        x, w = x.to(dtype), w.to(dtype)
+    return x @ w
 
 
 def softcap(x: torch.Tensor, cap: float) -> torch.Tensor:
@@ -106,14 +118,14 @@ class MLP(nn.Module):
             self.wg = param((d_model, d_ff), dtype, device)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        h = x @ self.wi
+        h = matmul(x, self.wi)
         if self.act == "silu":
-            h = F.silu(x @ self.wg) * h
+            h = F.silu(matmul(x, self.wg)) * h
         elif self.act == "geglu":
-            h = F.gelu(x @ self.wg, approximate="tanh") * h
+            h = F.gelu(matmul(x, self.wg), approximate="tanh") * h
         else:
             h = F.gelu(h, approximate="tanh")
-        return h @ self.wo
+        return matmul(h, self.wo)
 
 
 def init_mlp(mlp: MLP, generator: torch.Generator) -> MLP:

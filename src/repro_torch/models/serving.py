@@ -12,9 +12,10 @@ hybrid families: prefill + single-token decode with an explicit cache.
   cache dtype.  Prefill runs the prompt over itself and writes each
   layer's roped k/v at [0, S); ``decode_step`` writes the new token's k/v
   at ``len`` and attends over the first ``len + 1`` positions
-  (``_stacked_decode``).  Both launch K4 once per layer.  The caches are
-  written in place: the cache a step returns holds the same tensors as
-  the one it was given.
+  (``_stacked_decode``), gemma2's local layers over the last
+  ``local_window`` of them.  Both launch K4 once per layer.  The caches
+  are written in place: the cache a step returns holds the same tensors
+  as the one it was given.
 * hybrid (RecurrentGemma): per local-attention layer a **ring buffer** of
   the window only, k and v (B, w, KV, hd) with ``w = min(window,
   max_len)`` -- constant memory per sequence -- and per RG-LRU layer a
@@ -26,7 +27,12 @@ hybrid families: prefill + single-token decode with an explicit cache.
   its query roped at the absolute ``pos``.  Both launch K6 once per RG-LRU
   layer and K4 once per attention layer.  The rings are written in place.
 
-Every cache carries ``len``, the tokens consumed, as a Python int.
+Every cache carries ``len``, the tokens consumed, as a Python int.  The
+KV caches and rings take ``prefill``'s ``cache_dtype`` (the model's
+dtype by default; the reference's launcher serves float32 weights over a
+bfloat16 cache, and ``launch/serve.py::generate`` does so too): k and v
+are cast into it as they are written, and K4 reads a bfloat16 cache
+under a float32 query in its decode form.
 
 The audio family's encoder (HuBERT) has no decode step, in the reference
 as here (``cfg.supports_decode`` is False): ``init_cache`` and
@@ -39,10 +45,10 @@ from __future__ import annotations
 import torch
 
 from ..device import resolve_device
+from ..kernels.attention.attention import cache_dtypes
 from .config import ArchConfig
 from .recurrent import mamba_init_state, rglru_init_state
 from .transformer import require_served
-
 
 def require_decode(cfg: ArchConfig) -> None:
     """Raise ``ValueError`` for a config without a decode step (an
@@ -90,11 +96,13 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int,
 def prefill(params, cfg: ArchConfig, batch: dict, max_len: int,
             cache_dtype=None):
     """batch: tokens (B, S).  Returns (logits (B, S, vocab), cache after
-    the S tokens).  Dense: the cache holds ``max_len`` positions in the
-    model's dtype (K4 takes q, k and v of one dtype); ``cache_dtype``, the
-    reference's argument, may only name that dtype.  Hybrid: the rings
-    hold ``min(window, max_len)`` positions in the model's dtype (the same
-    rule); the RG-LRU states are the sequence form's final states, as the
+    the S tokens).  Dense: the cache holds ``max_len`` positions in
+    ``cache_dtype`` (None: the model's dtype; a bfloat16 cache under a
+    float32 model too, as K4's decode form takes: ``cache_dtypes``), the
+    prompt attending over its own k/v before they are cast into the
+    cache, as the reference's ``prefill`` does.  Hybrid: the rings hold
+    ``min(window, max_len)`` positions in ``cache_dtype`` (the same rule);
+    the RG-LRU states are the sequence form's final states, as the
     reference's ``_prefill_recurrent`` returns them.  Ssm: ``max_len`` and
     ``cache_dtype`` are unused; the states take the model's dtype, as the
     reference's ``_prefill_recurrent`` returns them."""
@@ -105,12 +113,16 @@ def prefill(params, cfg: ArchConfig, batch: dict, max_len: int,
         cache = init_cache(cfg, b, max_len, params.dtype, tokens.device)
         logits, rec = params.run(tokens, cache["rec"])
         return logits, {"len": s, "rec": rec}
-    if cache_dtype not in (None, params.dtype):
-        raise ValueError(f"the KV cache must take the model's dtype "
-                         f"({params.dtype}), not {cache_dtype}")
+    cache_dtype = params.dtype if cache_dtype is None else cache_dtype
+    if cache_dtype not in cache_dtypes(params.dtype):
+        raise ValueError(f"a {params.dtype} model's KV cache takes "
+                         f"{cache_dtypes(params.dtype)} (K4's decode form: a "
+                         f"float32 or bfloat16 q over a cache of its dtype, "
+                         f"or a float32 q over a bfloat16 cache), not "
+                         f"{cache_dtype}")
     if s > max_len:
         raise ValueError(f"prompt of {s} tokens exceeds max_len {max_len}")
-    cache = init_cache(cfg, b, max_len, params.dtype, tokens.device)
+    cache = init_cache(cfg, b, max_len, cache_dtype, tokens.device)
     if cfg.family == "hybrid":
         logits, rec = params.run(tokens, (cache["k"], cache["v"]))
         return logits, dict(cache, rec=rec, len=s)

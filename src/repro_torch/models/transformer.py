@@ -10,9 +10,16 @@ The reference stacks its layers on a leading axis for ``lax.scan``; the
 port keeps one block per layer in a ``ModuleList``.  An ssm block is
 ``x + MambaMixer(rms_norm(x, ln1))``: the ssm family has no FFN, so the
 reference's ``ln2``, which it initialises and never reads, has no
-counterpart there.  A dense block is the reference's ``_attn_block``
-without post-norms and ``_ffn`` without MoE: ``x + attn(rms_norm(x,
-ln1))``, then ``x + mlp(rms_norm(x, ln2))``.  The hybrid family
+counterpart there.  A dense block is the reference's ``_attn_block`` and
+``_ffn`` without MoE: ``x + attn(rms_norm(x, ln1))``, then ``x +
+mlp(rms_norm(x, ln2))``; with gemma2's post-norms each branch's output
+passes ``rms_norm`` with ``pn1`` / ``pn2`` before its residual add.
+Gemma2 alternates local and global layers (``cfg.layer_kind``: even
+layers local); where the reference's ``_dual_window_block`` runs
+attention under both masks and selects one, the port builds each block
+with its own layer's window and runs one K4 launch with that mask, the
+logit soft-cap ``cfg.logit_softcap`` in both, and soft-caps the logits at
+``cfg.final_softcap``.  The hybrid family
 (RecurrentGemma) interleaves RG-LRU blocks (``_rglru_block``: the same
 shape with the RG-LRU mixer in place of attention) with local-attention
 blocks (a dense block with the RG-LRU config's window), kept in the
@@ -22,8 +29,7 @@ audio family (HuBERT) is a ``DenseLM`` that takes the reference's
 embeddings (B, S, d) in, then the dense blocks with bidirectional
 attention (``cfg.causal`` False), RoPE from positions [0, S), ``ln_f`` and
 an untied head; it has no decode step.  The other
-families, and the dense configs with gemma2's features, wait for the
-slices that bring them (ROADMAP §1).
+families wait for the slices that bring them (ROADMAP §1).
 """
 
 from __future__ import annotations
@@ -34,8 +40,8 @@ from torch import nn
 from ..device import resolve_device
 from .attention import Attention, init_attention
 from .config import ArchConfig
-from .layers import (MLP, init_mlp, param, rms_norm, rope_table, softcap,
-                     truncated_normal)
+from .layers import (MLP, init_mlp, matmul, param, rms_norm, rope_table,
+                     softcap, truncated_normal)
 from .recurrent import MambaMixer, RGLRUMixer, init_mamba, init_rglru
 
 #: the slice that will bring each family not ported yet (ROADMAP §1)
@@ -44,16 +50,15 @@ _WAITING = {
            "the rest of the LM scaffold",
     "moe": "the rest of the LM scaffold (MoE layers)",
 }
-_GEMMA2 = ("the gemma2 serving slice L2g (K4's soft-cap and windowed decode "
-           "over a linear cache, post-norms, the local/global alternation)")
 
 
 def require_served(cfg: ArchConfig) -> None:
     """Raise ``NotImplementedError`` naming the slice that brings ``cfg``
     unless the port runs it: the ssm and hybrid families, the dense family
-    without gemma2's features, and the audio family's encoder (``forward``
-    only: its missing decode step is refused by ``models/serving.py`` and
-    ``launch/serve.py``, as the reference refuses it)."""
+    (gemma2's features included), and the audio family's encoder
+    (``forward`` only: its missing decode step is refused by
+    ``models/serving.py`` and ``launch/serve.py``, as the reference refuses
+    it)."""
     if cfg.family not in ("ssm", "dense", "hybrid", "audio"):
         raise NotImplementedError(
             f"{cfg.name}: the port has the ssm, dense, hybrid and audio "
@@ -71,16 +76,11 @@ def require_served(cfg: ArchConfig) -> None:
     if cfg.family in ("ssm", "audio") and cfg.tie_embeddings:
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.family} path has untied embeddings only")
-    if cfg.family in ("dense", "audio") and (
-            cfg.local_window or cfg.local_global_alternate
-            or cfg.logit_softcap or cfg.final_softcap or cfg.post_norm
-            or cfg.act not in ("silu", "gelu")):
-        raise NotImplementedError(f"{cfg.name}: waits for {_GEMMA2}")
     if cfg.family == "hybrid" and (cfg.logit_softcap or cfg.final_softcap
                                    or cfg.post_norm):
         raise NotImplementedError(
-            f"{cfg.name}: the hybrid path has no soft-caps or post-norms; "
-            f"they wait for {_GEMMA2}")
+            f"{cfg.name}: the hybrid path has no soft-caps or post-norms "
+            f"(no hybrid config has them)")
 
 
 def _norm(d: int, device) -> nn.Parameter:
@@ -140,50 +140,72 @@ class MambaLM(nn.Module):
 
 
 class DenseBlock(nn.Module):
-    """``x + attn(rms_norm(x, ln1))``, then ``x + mlp(rms_norm(x, ln2))``.
-    ``forward`` runs the sequence over itself (query i over keys within
-    ``window`` of it when that is > 0: the hybrid family's local
-    attention; over every key when ``cfg.causal`` is False: the audio
-    family's encoder) and also returns its roped k and v (for the
-    prefill's cache); ``decode`` runs one token per row over the cache,
-    writing its k/v into it first."""
+    """``x + attn(rms_norm(x, ln1))``, then ``x + mlp(rms_norm(x, ln2))``;
+    with ``cfg.post_norm`` (gemma2) ``x + rms_norm(attn(...), pn1)``, then
+    ``x + rms_norm(mlp(...), pn2)``.  ``forward`` runs the sequence over
+    itself (query i over keys within ``window`` of it when that is > 0:
+    the hybrid family's and gemma2's local attention; over every key when
+    ``cfg.causal`` is False: the audio family's encoder), its scores
+    soft-capped at ``cfg.logit_softcap`` when that is > 0, and also
+    returns its roped k and v (for the prefill's cache); ``decode`` runs
+    one token per row over the cache, writing its k/v into it first."""
 
     def __init__(self, cfg: ArchConfig, dtype, device, window: int = 0):
         super().__init__()
         self.eps = cfg.norm_eps
         self.window = window
         self.causal = cfg.causal
+        self.logit_cap = cfg.logit_softcap
         self.ln1 = _norm(cfg.d_model, device)
         self.ln2 = _norm(cfg.d_model, device)
+        if cfg.post_norm:
+            self.pn1 = _norm(cfg.d_model, device)
+            self.pn2 = _norm(cfg.d_model, device)
+        self.post_norm = cfg.post_norm
         self.attn = Attention(cfg, dtype, device)
         self.mlp = MLP(cfg.d_model, cfg.d_ff, cfg.act, dtype, device)
 
+    def _residual(self, x: torch.Tensor, y: torch.Tensor,
+                  post: str) -> torch.Tensor:
+        if self.post_norm:
+            y = rms_norm(y, getattr(self, post), self.eps)
+        return x + y
+
     def _ffn(self, x: torch.Tensor) -> torch.Tensor:
-        return x + self.mlp(rms_norm(x, self.ln2, self.eps))
+        return self._residual(x, self.mlp(rms_norm(x, self.ln2, self.eps)),
+                              "pn2")
 
     def forward(self, x: torch.Tensor, rope):
         q, k, v = self.attn.qkv_project(rms_norm(x, self.ln1, self.eps), rope)
-        x = x + self.attn.out_project(self.attn.attention(
-            q, k, v, self.window, self.causal))
+        o = self.attn.attention(q, k, v, self.window, self.causal,
+                                self.logit_cap)
+        x = self._residual(x, self.attn.out_project(o), "pn1")
         return self._ffn(x), k, v
 
     def decode(self, x: torch.Tensor, rope, k_cache: torch.Tensor,
-               v_cache: torch.Tensor, slot: int, k_len: int) -> torch.Tensor:
+               v_cache: torch.Tensor, slot: int,
+               k_len: int) -> torch.Tensor:
         """Writes the token's k/v at ``slot`` and attends over the first
-        ``k_len`` positions: ``(pos, pos + 1)`` in a linear cache, ``(pos %
-        w, min(pos + 1, w))`` in a ring of ``w`` (which holds exactly the
-        last keys the token may see)."""
+        ``k_len`` positions within the block's window: ``(pos, pos + 1)``
+        in a linear cache (a gemma2 local layer's token sees its last
+        ``window`` positions), or ``(pos % w, min(pos + 1, w))`` in a ring
+        of ``w <= window`` (which holds exactly the last keys the token may
+        see, so the window keeps every one).  The cache may be of another
+        dtype than the model (bfloat16 under float32 weights); the k/v are
+        cast into it."""
         q, k, v = self.attn.qkv_project(rms_norm(x, self.ln1, self.eps), rope)
         write_kv(k_cache, v_cache, k, v, slot)
-        o = self.attn.decode_attention(q, k_cache, v_cache, k_len)
-        return self._ffn(x + self.attn.out_project(o))
+        o = self.attn.decode_attention(q, k_cache, v_cache, k_len,
+                                       self.window, self.logit_cap)
+        return self._ffn(self._residual(x, self.attn.out_project(o), "pn1"))
 
 
 def write_kv(k_cache: torch.Tensor, v_cache: torch.Tensor, k: torch.Tensor,
              v: torch.Tensor, start: int) -> None:
     """Write k, v (B, S, KV, hd) into the caches (B, S_max, KV, hd) at
-    positions [start, start + S), cast to the cache dtype, in place (the
-    reference's ``_write_kv`` returns new arrays)."""
+    positions [start, start + S), cast to the cache dtype as the
+    reference's ``_write_kv`` casts them, in place (the reference returns
+    new arrays)."""
     s = k.shape[1]
     if start + s > k_cache.shape[1]:
         raise ValueError(f"KV cache of {k_cache.shape[1]} positions is full "
@@ -225,18 +247,18 @@ class _LM(nn.Module):
 
     def _inputs(self, inputs: torch.Tensor) -> torch.Tensor:
         """The first block's input: the embedding of tokens (B, S), or
-        frame embeddings (B, S, d) in the weights' dtype, as they are (the
-        reference's ``x @ wq`` would promote float32 embeddings over
-        bfloat16 weights to float32; the port takes one dtype and refuses
-        another)."""
+        floating-point frame embeddings (B, S, d) as they are.  Embeddings
+        of another dtype than the weights are promoted with them in every
+        product (``layers.matmul``), as the reference's ``x @ wq`` promotes
+        them: float32 frames over bfloat16 weights run in float32."""
         if self.cfg.frontend == "tokens":
             return self._embed(inputs)
         if inputs.dim() != 3 or inputs.shape[-1] != self.cfg.d_model:
             raise ValueError(f"{self.cfg.name}: embeds must be (B, S, "
                              f"{self.cfg.d_model}), got {tuple(inputs.shape)}")
-        if inputs.dtype != self.dtype:
-            raise ValueError(f"{self.cfg.name}: embeds are {inputs.dtype}, "
-                             f"the weights {self.dtype}; cast them")
+        if not inputs.is_floating_point():
+            raise ValueError(f"{self.cfg.name}: embeds must be floating "
+                             f"point, got {inputs.dtype}")
         return inputs
 
     def _embed(self, tokens: torch.Tensor) -> torch.Tensor:
@@ -256,24 +278,28 @@ class _LM(nn.Module):
                           self.cfg.rope_theta)
 
     def _logits(self, x: torch.Tensor) -> torch.Tensor:
+        """Final norm, head and gemma2's final soft-cap (none elsewhere)."""
         x = rms_norm(x, self.ln_f, self.cfg.norm_eps)
         head = self.embed.T if self.cfg.tie_embeddings else self.lm_head
-        return x @ head
+        return softcap(matmul(x, head), self.cfg.final_softcap)
 
 
 class DenseLM(_LM):
     """Embedding (a frame encoder has none), ``n_layers`` dense blocks,
-    final norm and head (``_LM``): the dense family, and the audio
-    family's encoder (HuBERT), whose blocks attend bidirectionally and
-    which has no decode step."""
+    final norm and head (``_LM``): the dense family, gemma2's local layers
+    (``cfg.layer_kind`` "local_attn") built with ``cfg.local_window``, and
+    the audio family's encoder (HuBERT), whose blocks attend
+    bidirectionally and which has no decode step."""
 
     families = ("dense", "audio")
 
     def __init__(self, cfg: ArchConfig, dtype=torch.float32, device=None):
         super().__init__(cfg, dtype, device)
         self.blocks = nn.ModuleList(
-            DenseBlock(cfg, dtype, self.ln_f.device)
-            for _ in range(cfg.n_layers))
+            DenseBlock(cfg, dtype, self.ln_f.device,
+                       window=cfg.local_window
+                       if cfg.layer_kind(i) == "local_attn" else 0)
+            for i in range(cfg.n_layers))
 
     def run(self, inputs: torch.Tensor, kv: tuple | None = None
             ) -> torch.Tensor:
@@ -292,7 +318,7 @@ class DenseLM(_LM):
     def step(self, tokens: torch.Tensor, kv: tuple, pos: int) -> torch.Tensor:
         """tokens (B, 1) at position ``pos`` over caches holding positions
         [0, pos) -> logits (B, 1, vocab); writes the token's k/v at
-        ``pos``."""
+        ``pos``; a local layer attends within its window of the cache."""
         x = self._embed(tokens)
         rope = self._rope_fn(tokens, pos)
         for i, block in enumerate(self.blocks):
@@ -323,14 +349,15 @@ def ring_fill(k_cache: torch.Tensor, v_cache: torch.Tensor, k: torch.Tensor,
               v: torch.Tensor) -> None:
     """Write a prompt's k, v (B, S, KV, hd) into ring caches (B, w, KV,
     hd) in place: the last ``w`` positions ``p`` at slot ``p % w``, as the
-    reference's ``_prefill_recurrent`` fills them.  With S < w, slots S..w-1
+    reference's ``_prefill_recurrent`` fills them, cast to the ring's
+    dtype.  With S < w, slots S..w-1
     take position S-1's k/v, as the reference's clipped gather gives them
     (decode never reads them before overwriting them)."""
     w, s = k_cache.shape[1], k.shape[1]
     take = torch.arange(w, device=k.device) + max(s - w, 0)
     slots, src = take % w, take.clamp(0, s - 1)
-    k_cache[:, slots] = k[:, src]
-    v_cache[:, slots] = v[:, src]
+    k_cache[:, slots] = k[:, src].to(k_cache.dtype)
+    v_cache[:, slots] = v[:, src].to(v_cache.dtype)
 
 
 class HybridLM(_LM):
@@ -407,7 +434,8 @@ def init_params(cfg: ArchConfig, seed: int = 0, dtype=torch.float32,
     seeded with ``seed`` on ``device`` (the card unless the caller asks
     for the CPU), with the reference's distributions: a token model's
     embedding N(0, 1) (tied: at scale d^-0.5) and ``lm_head`` at d^-0.5,
-    truncated at 2 sigma; norms and biases zero."""
+    truncated at 2 sigma; norms (gemma2's post-norms too) and biases
+    zero."""
     require_served(cfg)
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
@@ -435,7 +463,7 @@ def init_params(cfg: ArchConfig, seed: int = 0, dtype=torch.float32,
 @torch.no_grad()
 def forward(params, cfg: ArchConfig, batch: dict) -> torch.Tensor:
     """batch: tokens (B, S), or for the audio family (``cfg.frontend ==
-    "frames"``) embeds (B, S, d) in the weights' dtype.  Returns logits
+    "frames"``) floating-point embeds (B, S, d).  Returns logits
     (B, S, vocab), from zero states (ssm, hybrid) and without a cache."""
     out = params.run(batch["embeds" if cfg.frontend == "frames"
                            else "tokens"])

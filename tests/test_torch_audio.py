@@ -171,12 +171,41 @@ def test_forward_attends_both_ways(carried):
 
 
 def test_forward_refuses_embeds_of_another_dtype(carried):
+    """Embeddings that are not floating point, or not (B, S, d), are
+    refused; floating ones of another dtype than the weights are promoted
+    with them, as the reference's products promote them (bfloat16 frames
+    over float32 weights run in float32)."""
     _, _, _, cfg, model = carried
     x = _t(_embeds(cfg.d_model))
-    with pytest.raises(ValueError, match="cast them"):
-        forward(model, cfg, {"embeds": x.to(torch.bfloat16)})
+    with pytest.raises(ValueError, match="floating point"):
+        forward(model, cfg, {"embeds": x.to(torch.int32)})
     with pytest.raises(ValueError, match="embeds must be"):
         forward(model, cfg, {"embeds": x[..., :-1]})
+    got = forward(model, cfg, {"embeds": x.to(torch.bfloat16)})
+    assert got.dtype == torch.float32 and bool(torch.isfinite(got).all())
+
+
+def test_f32_frames_over_bf16_weights_match_the_references_promotion():
+    """Float32 frame embeddings over bfloat16 weights: the reference's
+    ``x @ wq`` promotes to float32, and so does the port
+    (``layers.matmul``), so the two encoders agree to float32 rounding:
+    within 1e-4 of the largest |logit|, the logits float32."""
+    ref_cfg = ref_configs.get_config("hubert-xlarge").reduced()
+    cfg = configs.get_config("hubert-xlarge").reduced()
+    params = ref_init_params(ref_cfg, jax.random.PRNGKey(0), jnp.bfloat16)
+    tree = _randomise_norms(jax.tree.map(np.asarray, params), seed=3)
+    model = params_from_numpy(tree, cfg, device="cpu")
+    assert model.dtype == torch.bfloat16
+    x = _embeds(cfg.d_model, seed=2)
+    want = np.asarray(ref_forward(jax.tree.map(jnp.asarray, tree), ref_cfg,
+                                  {"embeds": jnp.asarray(x)}, remat=False))
+    got = forward(model, cfg, {"embeds": _t(x)})
+    assert want.dtype == np.float32 and got.dtype == torch.float32
+    err = float(np.max(np.abs(got.numpy().astype(np.float64) - want)))
+    scale = float(np.max(np.abs(want)))
+    print(f"f32 frames over bf16 weights: logits max |d| {err:.3g}, "
+          f"{err / scale:.3g} of the largest |logit| {scale:.3g}")
+    assert err <= LOGIT_TOL * scale
 
 
 # ---------------------------------------------------------------------------

@@ -373,10 +373,18 @@ def test_init_cache_is_zero_and_shaped_as_reference(carried):
 
 
 def test_cache_dtype_must_be_the_models_and_the_cache_bounded(carried):
+    """The cache takes ``cache_dtype`` as the reference's ``prefill``
+    does: a bfloat16 cache under float32 weights (the reference's
+    default) is taken and decoded over, a dtype K4 does not take is
+    refused; the model's dtype by default; the cache is bounded."""
     _, _, _, cfg, model = carried
     toks = _t(_tokens()[:, :P])
-    with pytest.raises(ValueError, match="dtype"):
-        prefill(model, cfg, {"tokens": toks}, S, torch.bfloat16)
+    _, cache = prefill(model, cfg, {"tokens": toks}, S, torch.bfloat16)
+    assert all(c.dtype == torch.bfloat16 for c in cache["k"] + cache["v"])
+    logits, cache = decode_step(model, cfg, {"tokens": toks[:, :1]}, cache)
+    assert logits.dtype == torch.float32 and cache["len"] == P + 1
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        prefill(model, cfg, {"tokens": toks}, S, torch.float16)
     with pytest.raises(ValueError, match="max_len"):
         prefill(model, cfg, {"tokens": toks}, P - 1)
     _, cache = prefill(model, cfg, {"tokens": toks}, P, torch.float32)
@@ -384,6 +392,22 @@ def test_cache_dtype_must_be_the_models_and_the_cache_bounded(carried):
     _, cache = prefill(model, cfg, {"tokens": toks}, P)
     with pytest.raises(ValueError, match="full"):
         decode_step(model, cfg, {"tokens": toks[:, :1]}, cache)
+
+
+@pytest.mark.parametrize("arch", ["smollm-135m", "gemma2-2b",
+                                  "recurrentgemma-9b"])
+def test_bf16_model_refuses_an_f32_cache_as_k4_does(arch):
+    """A bfloat16 model over a float32 cache is refused by ``prefill``,
+    on the CPU as K4's decode form refuses it on the card, so no cache is
+    taken that the first decode step there would refuse; the bfloat16
+    cache is taken."""
+    cfg = configs.get_config(arch).reduced()
+    model = init_params(cfg, dtype=torch.bfloat16, device="cpu")
+    toks = torch.zeros((1, 4), dtype=torch.int32)
+    with pytest.raises(ValueError, match="float32 q over a bfloat16 cache"):
+        prefill(model, cfg, {"tokens": toks}, 8, torch.float32)
+    _, cache = prefill(model, cfg, {"tokens": toks}, 8, torch.bfloat16)
+    assert all(c.dtype == torch.bfloat16 for c in cache["k"] + cache["v"])
 
 
 def test_dense_models_need_a_card_unless_cpu_is_asked(monkeypatch, carried):
@@ -407,8 +431,7 @@ def test_launcher_serves_dense_on_cpu(arch):
     assert toks.shape == (2, 3)
 
 
-@pytest.mark.parametrize("arch", ["gemma2-2b", "qwen2-vl-72b",
-                                  "qwen2-moe-a2.7b"])
+@pytest.mark.parametrize("arch", ["qwen2-vl-72b", "qwen2-moe-a2.7b"])
 def test_unserved_configs_name_their_slice(arch):
     """Each config the port does not serve yet is refused by the model
     (``NotImplementedError``) and by the launcher (``SystemExit``), with

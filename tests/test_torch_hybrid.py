@@ -527,10 +527,17 @@ def test_init_cache_is_zero_and_shaped_as_reference(carried):
 
 
 def test_cache_dtype_must_be_the_models(carried):
+    """The rings take ``cache_dtype`` as the reference's ``prefill`` does:
+    bfloat16 rings under float32 weights (the reference's default) are
+    taken and decoded over, the RG-LRU states keeping the model's dtype;
+    the model's dtype by default."""
     _, _, _, cfg, model = carried
     toks = _t(_tokens()[:, :12])
-    with pytest.raises(ValueError, match="dtype"):
-        prefill(model, cfg, {"tokens": toks}, 16, torch.bfloat16)
+    _, cache = prefill(model, cfg, {"tokens": toks}, 16, torch.bfloat16)
+    assert all(r.dtype == torch.bfloat16 for r in cache["k"] + cache["v"])
+    assert all(st["conv"].dtype == torch.float32 for st in cache["rec"])
+    logits, cache = decode_step(model, cfg, {"tokens": toks[:, :1]}, cache)
+    assert logits.dtype == torch.float32 and cache["len"] == 13
     _, cache = prefill(model, cfg, {"tokens": toks}, 16)
     assert cache["k"][0].dtype == torch.float32
 

@@ -7,11 +7,12 @@ host that has PyTorch but no JAX.  On the CPU it checks what the kernels
 receive (the wrappers refuse CPU tensors, ``ops`` routes them to the plain
 versions, K2's banded taps reproduce the dense weights, K5's and K6's
 plain scans carry their state across a split, K4's decode form is a row
-of its prefill form, its window keeps each row's last keys and its
-non-causal form is refused where no path takes it); the tests marked
-``cuda`` launch the kernels (and run the operators, the reduced
-Falcon-Mamba, a reduced StarCoder2, a reduced RecurrentGemma and a reduced
-HuBERT on the card) and skip without a card:
+of its prefill form, capped and windowed too, its window keeps each row's
+last keys and its non-causal form, mixed dtypes and a misplaced decode
+window are refused where no path takes them); the tests marked ``cuda``
+launch the kernels (and run the operators, the reduced Falcon-Mamba, a
+reduced StarCoder2, a reduced RecurrentGemma, a reduced HuBERT and a
+reduced Gemma2 on the card) and skip without a card:
 ``PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_kernels.py``.
 """
 
@@ -29,7 +30,8 @@ from repro_torch.codec import segment as S
 from repro_torch.core.knobs import FidelityOption, IngestSpec
 from repro_torch.kernels.attention import attention as K4
 from repro_torch.kernels.attention import ops as attn_ops
-from repro_torch.kernels.attention.ref import attention_ref, hold_ratio
+from repro_torch.kernels.attention.ref import (attention_ref, hold_ratio,
+                                               scores_over_cap)
 from repro_torch.kernels.build import LAUNCHES
 from repro_torch.kernels.dct8 import dct8 as K13
 from repro_torch.kernels.dct8 import ops as dct_ops
@@ -175,7 +177,7 @@ def test_attention_wrapper_refuses_cpu_and_ops_routes_to_plain():
     with pytest.raises(ValueError, match="CUDA"):
         K4.flash_attention(q, k, v)
     with pytest.raises(ValueError, match="head dims"):
-        K4.flash_attention(*_attn_inputs(1, 3, 3, 2, 1, 32))
+        K4.flash_attention(*_attn_inputs(1, 3, 3, 2, 1, 48))
     with pytest.raises(ValueError, match="decode form"):
         K4.flash_attention(*_attn_inputs(1, 1, 3, 34, 2, 64))
     with pytest.raises(ValueError, match="k_len"):
@@ -184,9 +186,9 @@ def test_attention_wrapper_refuses_cpu_and_ops_routes_to_plain():
         K4.flash_attention(q, k, v, 1)
     with pytest.raises(ValueError, match="prefill form"):
         K4.flash_attention(q, k, v, k_len=4)
-    with pytest.raises(ValueError, match="no window"):
-        K4.flash_attention(q[:, :1], k, v, 3, 4, window=2)
-    with pytest.raises(ValueError, match="no window"):
+    with pytest.raises(ValueError, match="last valid position"):
+        K4.flash_attention(q[:, :1], k, v, 2, 4, window=2)
+    with pytest.raises(ValueError, match="window is >= 0"):
         K4.flash_attention(q, k, v, window=-1)
     assert torch.equal(attn_ops.gqa_attention(q, k, v),
                        attention_ref(q, k, v))
@@ -194,6 +196,62 @@ def test_attention_wrapper_refuses_cpu_and_ops_routes_to_plain():
                        attention_ref(q, k, v, window=2))
     assert torch.equal(attn_ops.gqa_attention(q[:, :1], k, v, 3, 4),
                        attention_ref(q[:, :1], k, v, 3, 4))
+    assert torch.equal(attn_ops.gqa_attention(q[:, :1], k, v, 3, 4, 2),
+                       attention_ref(q[:, :1], k, v, 3, 4, 2))
+
+
+def test_attention_capped_mixed_and_windowed_decode_forms_are_checked():
+    """The soft-cap, the decode form's window and a float32 query over a
+    bfloat16 cache: the wrapper refuses what the C entry refuses (a
+    negative cap, mixed dtypes in the prefill form or as a bfloat16 query
+    over a float32 cache) before it looks at the device, takes head_dim 32
+    in both forms, counts each capped form under its own key; ``ops``
+    sends CPU tensors to the plain version with the arguments passed
+    through."""
+    q, k, v = _attn_inputs(2, 6, 6, 4, 2, 32)
+    with pytest.raises(ValueError, match="logit_cap"):
+        K4.flash_attention(q, k, v, logit_cap=-1.0)
+    with pytest.raises(ValueError, match="decode form only"):
+        K4.flash_attention(q, k.bfloat16(), v.bfloat16())
+    with pytest.raises(ValueError, match="decode form only"):
+        K4.flash_attention(q[:, :1].bfloat16(), k, v, 5, 6)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        K4.flash_attention(q[:, :1], k.half(), v.half(), 5, 6)
+    for args in ((q,), (q[:, :1], 5, 6, 3)):  # hd 32: both forms
+        with pytest.raises(ValueError, match="CUDA"):
+            K4.flash_attention(*args[:1], k, v, *args[1:], logit_cap=50.0)
+    with pytest.raises(ValueError, match="CUDA"):  # an f32 q over bf16 k/v
+        K4.flash_attention(q[:, :1], k.bfloat16(), v.bfloat16(), 5, 6, 3)
+    assert (K4.launch_key(), K4.launch_key(causal=False)) == (
+        "flash_attention", K4.NONCAUSAL)
+    assert K4.launch_key(window=2, logit_cap=50.0) == K4.CAPPED_WINDOWED
+    assert K4.launch_key(logit_cap=50.0) == K4.CAPPED
+    got = attn_ops.gqa_attention(q[:, :1], k.bfloat16(), v.bfloat16(), 5, 6,
+                                 3, logit_cap=2.0)
+    assert got.dtype == torch.float32
+    assert torch.equal(got, attention_ref(q[:, :1], k.bfloat16(),
+                                          v.bfloat16(), 5, 6, 3,
+                                          logit_cap=2.0))
+    assert not torch.equal(got, attention_ref(q[:, :1], k.bfloat16(),
+                                              v.bfloat16(), 5, 6, 3))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attention_plain_capped_decode_form_is_a_row_of_the_prefill(dtype):
+    """With a soft-cap and a window, query row t of the prefill form equals
+    the decode form of that row over a cache whose first ``t + 1``
+    positions are valid (gemma2's local layer, in prefill and in a decode
+    step); and its scores exceed the cap (``scores_over_cap``), so the
+    uncapped row differs."""
+    q, k, v = _attn_inputs(2, 40, 48, 4, 2, 32, dtype, seed=9)
+    k = scores_over_cap(q, k, 50.0).to(dtype)
+    full = attention_ref(q, k[:, :40], v[:, :40], window=12, logit_cap=50.0)
+    for t in (0, 11, 12, 39):
+        row = attention_ref(q[:, t:t + 1], k, v, t, t + 1, window=12,
+                            logit_cap=50.0)
+        torch.testing.assert_close(row, full[:, t:t + 1], atol=1e-6, rtol=0)
+    assert not torch.equal(
+        full, attention_ref(q, k[:, :40], v[:, :40], window=12))
 
 
 def test_attention_noncausal_form_is_refused_where_no_path_takes_it():
@@ -456,7 +514,7 @@ def test_reduced_falcon_mamba_on_card_matches_plain_path(cuda):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("hd", [32, 64, 128])
 @pytest.mark.parametrize("groups", [1, 4, 12])
 @pytest.mark.parametrize("sq", [1, 130, 300])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -478,7 +536,7 @@ def test_flash_attention_kernel_matches_plain_on_card(cuda, hd, groups, sq,
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("hd", [32, 64, 128])
 @pytest.mark.parametrize("groups", [1, 4, 12])
 @pytest.mark.parametrize("cache_len", [1, 255, 256, 257, 700])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -677,7 +735,7 @@ def test_flash_attention_c_entry_refuses_noncausal_forms_no_path_takes(cuda):
     def call(sq, q_offset, k_len, window, causal):
         return fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                   1, sq, 8, 2, 2, 80, q_offset, k_len, window, causal,
-                  80 ** -0.5, 0, stream)
+                  80 ** -0.5, 0.0, 0, 0, stream)
 
     assert call(1, 7, 8, 0, 0) == 1
     assert call(8, 0, 8, 4, 0) == 1
@@ -709,5 +767,180 @@ def test_reduced_hubert_on_card_matches_plain_path(cuda):
     torch.cuda.synchronize()
     assert LAUNCHES.snapshot() == {K4.NONCAUSAL: cfg.n_layers}
     ref = forward(model_cpu, cfg, {"embeds": x})
+    assert float((got.cpu() - ref).abs().max()) <= \
+        1e-4 * float(ref.abs().max())
+
+
+def _capped_inputs(bsz, sq, sk, h, kvh, hd, dtype, seed, device, q_offset=0):
+    """q, k, v as ``_attn_inputs`` makes them, the keys 30 times larger (so
+    scores spread far past a cap of 50) and key row ``q_offset + i`` a
+    multiple of query row i (``scores_over_cap``: a score of 100 in every
+    query row, by construction at every Sq, Sq 1 included), rounded to
+    ``dtype`` last."""
+    q, k, v = _attn_inputs(bsz, sq, sk, h, kvh, hd, torch.float32, seed)
+    k = scores_over_cap(q, 30 * k, 50.0, q_offset)
+    return [t.to(dtype).to(device) for t in (q, k, v)]
+
+
+def _max_score(q, k):
+    kk = k.float().repeat_interleave(q.shape[2] // k.shape[2], dim=2)
+    return float(torch.einsum("bqhd,bkhd->bhqk",
+                              q.float() * q.shape[3] ** -0.5, kk).max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd,h,kvh", [(256, 8, 4), (64, 4, 2), (32, 4, 1)])
+@pytest.mark.parametrize("sq", [1, 130, 300])
+@pytest.mark.parametrize("window", [0, 100])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_capped_matches_plain_on_card(cuda, hd, h, kvh, sq,
+                                                      window, dtype):
+    """K4 with gemma2's logit soft-cap (50), over a prompt (Sq 130, 300:
+    ragged tiles) and in the decode form (Sq 1 over a 700-position cache
+    at length 300), with and without a window, against its plain version
+    element by element within ``ref.HOLD``: gemma2's 8 heads over 4 at
+    head_dim 256, GQA at 64 and the launcher's head_dim 32.  Every query
+    row has a score of 100 by construction; the plain version without the
+    cap, and without the window where there is one, fails the hold; the
+    launch counts under its form's key."""
+    sk, q_offset = (700, 299) if sq == 1 else (sq, 0)
+    q, k, v = _capped_inputs(2, sq, sk, h, kvh, hd, dtype, seed=sq + window,
+                             device=cuda, q_offset=q_offset)
+    k_len = q_offset + 1 if sq == 1 else sk
+    assert _max_score(q, k[:, q_offset:q_offset + sq]) > 50.0
+    LAUNCHES.reset()
+    got = K4.flash_attention(q, k, v, q_offset, k_len, window,
+                             logit_cap=50.0)
+    torch.cuda.synchronize()
+    assert LAUNCHES.snapshot() == {K4.launch_key(True, window, 50.0): 1}
+    want = attention_ref(q, k, v, q_offset, k_len, window, logit_cap=50.0)
+    assert got.dtype == dtype and hold_ratio(got, want) <= 1
+    assert hold_ratio(attention_ref(q, k, v, q_offset, k_len, window),
+                      want) > 1
+    if window:
+        assert hold_ratio(attention_ref(q, k, v, q_offset, k_len,
+                                        logit_cap=50.0), want) > 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cache_len", [1, 255, 256, 257, 700])
+@pytest.mark.parametrize("window", [1, 64, 256, 300])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_decode_window_matches_plain_on_card(cuda, cache_len,
+                                                             window, dtype):
+    """K4's decode form with a window over a linear cache (gemma2's local
+    layers at head_dim 256, 8 heads over 4): the token at ``len - 1``
+    sees keys ``len - window`` .. ``len - 1`` of a 700-position cache,
+    windows inside, on and across the kernel's 256-key chunks; the plain
+    version without the window fails the hold wherever it masks."""
+    q, k, v = _attn_inputs(2, 1, 700, 8, 4, 256, dtype, seed=cache_len,
+                           device=cuda)
+    k = 4 * k  # scores spread, so the masked keys carry weight
+    got = K4.flash_attention(q, k, v, cache_len - 1, cache_len, window)
+    want = attention_ref(q, k, v, cache_len - 1, cache_len, window)
+    assert hold_ratio(got, want) <= 1
+    if cache_len > window:
+        assert hold_ratio(attention_ref(q, k, v, cache_len - 1, cache_len),
+                          want) > 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd,h,kvh", [(32, 4, 2), (64, 4, 2), (128, 24, 2),
+                                      (256, 8, 4), (256, 16, 1)])
+@pytest.mark.parametrize("cache_len", [1, 257, 700])
+@pytest.mark.parametrize("window,cap", [(0, 0.0), (100, 50.0)])
+def test_flash_attention_f32_query_over_bf16_cache_on_card(cuda, hd, h, kvh,
+                                                           cache_len, window,
+                                                           cap):
+    """The decode form with a float32 query over a bfloat16 cache (float32
+    weights over the reference's default cache), plain and capped with a
+    window, at every decode head dim: float32 out, held by ``ref.HOLD``'s
+    float32 row (the bfloat16 inputs are exact in float32).  The plain
+    version with q rounded to bfloat16 first fails that hold wherever more
+    than one key is seen, so the kernel reads q in float32."""
+    if cap:
+        q, k, v = _capped_inputs(2, 1, 700, h, kvh, hd, torch.float32,
+                                 seed=cache_len + hd, device=cuda,
+                                 q_offset=cache_len - 1)
+    else:  # scores spread (4 sigma), no key set to dominate
+        q, k, v = _attn_inputs(2, 1, 700, h, kvh, hd, seed=cache_len + hd,
+                               device=cuda)
+        k = 4 * k
+    k, v = k.bfloat16(), v.bfloat16()
+    LAUNCHES.reset()
+    got = K4.flash_attention(q, k, v, cache_len - 1, cache_len, window,
+                             logit_cap=cap)
+    torch.cuda.synchronize()
+    assert LAUNCHES.snapshot() == {K4.launch_key(True, window, cap): 1}
+    want = attention_ref(q, k, v, cache_len - 1, cache_len, window,
+                         logit_cap=cap)
+    assert got.dtype == want.dtype == torch.float32
+    assert hold_ratio(got, want) <= 1
+    if cache_len > 1:
+        rounded = attention_ref(q.bfloat16(), k, v, cache_len - 1, cache_len,
+                                window, logit_cap=cap).float()
+        assert hold_ratio(rounded, want) > 1
+
+
+@pytest.mark.cuda
+def test_flash_attention_c_entry_refuses_mixed_and_misplaced_forms(cuda):
+    """The C entry returns cudaErrorInvalidValue (1) and launches nothing
+    for mixed dtypes in the prefill form, a bfloat16 query over a float32
+    cache, a decode window with the query anywhere but at the cache's last
+    valid position, and a negative cap; it takes an f32 query over a
+    bf16 cache in the decode form, capped and windowed."""
+    fn = K4._kernel()
+    stream = torch.cuda.current_stream(cuda).cuda_stream
+    q, k, v = _attn_inputs(1, 8, 8, 2, 2, 32, device=cuda)
+    kb, vb = k.bfloat16(), v.bfloat16()
+    out = torch.zeros_like(q)
+
+    def call(sq, q_offset, k_len, window, cap, q_bf16, kv_bf16):
+        kk, vv = (kb, vb) if kv_bf16 else (k, v)
+        return fn(q.data_ptr(), kk.data_ptr(), vv.data_ptr(), out.data_ptr(),
+                  1, sq, 8, 2, 2, 32, q_offset, k_len, window, 1,
+                  32 ** -0.5, cap, q_bf16, kv_bf16, stream)
+
+    assert call(8, 0, 8, 0, 0.0, 0, 1) == 1
+    assert call(1, 7, 8, 0, 0.0, 1, 0) == 1
+    assert call(1, 6, 8, 4, 0.0, 0, 0) == 1
+    assert call(8, 0, 8, 0, -1.0, 0, 0) == 1
+    torch.cuda.synchronize()
+    assert not out.any()
+    assert call(1, 7, 8, 4, 50.0, 0, 1) == 0
+    torch.cuda.synchronize()
+    want = attention_ref(q[:, :1], kb, vb, 7, 8, 4, logit_cap=50.0)
+    assert hold_ratio(out[:, :1], want) <= 1
+
+
+@pytest.mark.cuda
+def test_reduced_gemma2_on_card_matches_plain_path(cuda):
+    """A reduced Gemma2 at its own head_dim 256 (d 128, 4 heads over 2,
+    window 16, caps 50 and 30, post-norms) with float32 weights served
+    over the launcher's bfloat16 cache: a 40-token prompt past the window
+    and 7 decode steps on the card (capped K4 once per layer and step, the
+    even layers windowed) give the CPU plain path's logits within 1e-4 of
+    their largest magnitude, and the same greedy tokens."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import init_params, prefill
+
+    cfg = dataclasses.replace(get_config("gemma2-2b").reduced(
+        n_layers=4, d_model=128), head_dim=256)
+    model_cpu = init_params(cfg, seed=0, device="cpu")
+    model = init_params(cfg, seed=0, device="cpu").to(cuda)
+    prompts = torch.randint(0, cfg.vocab_size, (2, 40),
+                            generator=torch.Generator().manual_seed(1))
+    LAUNCHES.reset()
+    toks, _, _ = generate(model, cfg, prompts.to(cuda), 8)
+    assert LAUNCHES.snapshot() == {K4.CAPPED: 2 * 8,
+                                   K4.CAPPED_WINDOWED: 2 * 8}
+    want, _, _ = generate(model_cpu, cfg, prompts, 8)
+    assert toks.cpu().tolist() == want.tolist()
+    got = prefill(model, cfg, {"tokens": prompts.to(cuda)}, 48,
+                  torch.bfloat16)[0]
+    ref = prefill(model_cpu, cfg, {"tokens": prompts}, 48, torch.bfloat16)[0]
     assert float((got.cpu() - ref).abs().max()) <= \
         1e-4 * float(ref.abs().max())
