@@ -144,6 +144,21 @@ PyTorch call of the same function, held by ``ref.HOLD`` in f32 as K4 is;
 its bf16 time is ``library_ms``) and beside
 ``F.scaled_dot_product_attention`` of the uncapped function.
 
+K4's decode form runs split-KV (a split kernel and a combine kernel a
+call).  Each serving phase counts its serve steps' K4 launches apart from
+its prefill's (through a pass-through wrapper of the launcher's
+``prefill``), holds each decode form with the plain version whose middle
+split (of K4's split plan) has its values zeroed failing the hold, and
+gives each of its four decode forms -- dense over 2,049 keys, the
+hybrid's full ring, gemma2's capped over 8,161 keys with and without the
+window -- a ``kernels`` row of its own: the serve steps' launches, CUDA
+event ms and the kernels' time on the card by the profiler (``device_ms``,
+split + combine), plain ms, the bytes bound, and one PyTorch call of the
+same function as ``library_ms`` (SDPA with ``enable_gqa`` over the valid
+keys, or ``flex_attention`` with the soft-cap as score_mod over the keys
+seen), that call held by ``ref.HOLD`` in f32 against K4's plain version
+first; each prints its split plan.
+
 Prints the queries' x-realtime, each serving phase's prefill time and
 decode rate, the audio phase's encode time, a ``{"kernels": [...]}`` line,
 the card's name and power limit, and last ``{"ok": true, "device":
@@ -417,19 +432,33 @@ def rel_err(torch, got, want) -> float:
 
 def timed_serve(torch, check, model, cfg, prompts, per_step: dict):
     """One untimed warm-up of ``generate``, then the timed and counted run
-    (counters zeroed just before it, read just after).  Checks that each
-    kernel of ``per_step`` launched its given number of times (one per
-    layer it serves) for the prefill and for each serve step.  Returns
-    (tokens, launches, prefill s, decode s)."""
+    (counters zeroed just before it, read just after, and read between its
+    prefill and its first serve step through a pass-through wrapper of
+    the launcher's ``prefill``).  Checks that each kernel of ``per_step``
+    launched its given number of times (one per layer it serves) for the
+    prefill and for each serve step.  Returns (tokens, launches, prefill
+    launches, prefill s, decode s)."""
     from repro_torch.kernels import build
-    from repro_torch.launch.serve import generate
+    from repro_torch.launch import serve
 
-    generate(model, cfg, prompts, SERVE_NEW)  # warm-up, not counted
+    serve.generate(model, cfg, prompts, SERVE_NEW)  # warm-up, not counted
     torch.cuda.reset_peak_memory_stats()
-    build.LAUNCHES.reset()
-    toks, t_prefill, t_decode = generate(model, cfg, prompts, SERVE_NEW)
-    torch.cuda.synchronize()
-    launches = build.LAUNCHES.snapshot()
+    prefill, in_prefill = serve.prefill, {}
+
+    def counted_prefill(*args, **kw):
+        out = prefill(*args, **kw)
+        in_prefill.update(build.LAUNCHES.snapshot())
+        return out
+
+    serve.prefill = counted_prefill
+    try:
+        build.LAUNCHES.reset()
+        toks, t_prefill, t_decode = serve.generate(model, cfg, prompts,
+                                                   SERVE_NEW)
+        torch.cuda.synchronize()
+        launches = build.LAUNCHES.snapshot()
+    finally:
+        serve.prefill = prefill
     steps = SERVE_NEW - 1
     bsz, plen = prompts.shape
     print(f"serve {cfg.name}: prefill {bsz}x{plen} in "
@@ -437,17 +466,20 @@ def timed_serve(torch, check, model, cfg, prompts, per_step: dict):
           f"{t_decode * 1e3:.1f} ms ({t_decode / steps * 1e3:.2f} ms a step, "
           f"{bsz * steps / t_decode:.1f} tok/s decode); peak "
           f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB; "
-          f"launches {launches}", flush=True)
+          f"launches {launches}, {in_prefill} of them in the prefill",
+          flush=True)
     for kernel, n in per_step.items():
         want = n * (1 + steps)
-        check(launches.get(kernel, 0) == want,
+        check(launches.get(kernel, 0) == want
+              and in_prefill.get(kernel, 0) == n,
               f"serve {cfg.name}: {kernel} launched "
-              f"{launches.get(kernel, 0)} times, {n} per prefill and per "
-              f"serve step ({want} expected)")
+              f"{launches.get(kernel, 0)} times, {in_prefill.get(kernel, 0)} "
+              f"in the prefill, {n} per prefill and per serve step ({want} "
+              f"expected)")
     check(tuple(toks.shape) == (bsz, SERVE_NEW)
           and bool(((toks >= 0) & (toks < cfg.vocab_size)).all()),
           f"serve {cfg.name}: greedy tokens {tuple(toks.shape)} in [0, vocab)")
-    return toks, launches, t_prefill, t_decode
+    return toks, launches, in_prefill, t_prefill, t_decode
 
 
 def profile_serve(torch, model, cfg, prompts, toks, t_prefill, t_decode):
@@ -577,7 +609,7 @@ def serving_phase(torch, check, cfg, dev) -> dict:
     model, prompts = served_model(torch, cfg, dev)
 
     # -- the timed serve, counted, and its profile ----------------------
-    toks, launches, t_prefill, t_decode = timed_serve(
+    toks, launches, in_prefill, t_prefill, t_decode = timed_serve(
         torch, check, model, cfg, prompts, {"mamba_scan": cfg.n_layers})
     profile_serve(torch, model, cfg, prompts, toks, t_prefill, t_decode)
     del model
@@ -648,11 +680,124 @@ def attention_inputs(torch, dev, bsz, sq, sk, h, kvh, d, seed, dtype):
                           (bsz, sk, kvh, d))]
 
 
-def dense_serving_phase(torch, check, cfg, dev) -> dict:
+def kernel_ms(torch, fn, calls=20) -> tuple[float, dict]:
+    """The card's kernel time per call of ``fn()`` (already warm) over
+    ``calls`` back-to-back calls under the profiler (``device_time``):
+    each kernel's mean time times its launches a call, summed, and by name
+    (launches a call, ms a launch).  Launches a call are rounded: the
+    trace may miss a window's first kernel."""
+    _, _, by_name = device_time(torch, lambda: [fn() for _ in range(calls)])
+    per_call = {name: (round(n / calls), ms / n) for name, ms, n in by_name}
+    return sum(c * ms for c, ms in per_call.values()), per_call
+
+
+def check_split_drop(torch, check, name, q, k, v, q_offset, k_len, window,
+                     cap, want):
+    """The plain version with the values of the middle split (of those
+    holding keys) of K4's decode split plan zeroed must fail ``ref.HOLD``
+    against ``want``: the hold sees one split of the kernel's lost."""
+    from repro_torch.kernels.attention.attention import decode_plan
+    from repro_torch.kernels.attention.ref import attention_ref, hold_ratio
+
+    _, live = decode_plan(k, q_offset, k_len, window)
+    lo, hi = live[(len(live) - 1) // 2]
+    v_bad = v.clone()
+    v_bad[:, lo:hi] = 0
+    bad = hold_ratio(attention_ref(q, k, v_bad, q_offset, k_len, window,
+                                   logit_cap=cap), want)
+    check(len(live) > 1 and bad > 1,
+          f"K4 hold, {name}: the plain version with split {lo}..{hi - 1} "
+          f"of {len(live)} zeroed stands at {bad:.3g} of the bound, so it "
+          f"fails")
+
+
+def sdpa_decode(torch, q, k, v, k_len):
+    """K4's uncapped decode form over a cache whose first ``k_len`` keys
+    are valid, as one PyTorch call for ``library_ms``: SDPA with
+    ``enable_gqa`` of the one query over the valid keys, both as views.
+    Returns the call, its output in q's layout."""
+    import torch.nn.functional as F
+
+    qt = q.transpose(1, 2)
+    kt, vt = (t[:, :k_len].transpose(1, 2) for t in (k, v))
+    return lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, enable_gqa=True).transpose(1, 2)
+
+
+def decode_row(torch, check, name, make, q_offset, k_len, window, cap,
+               library, launches) -> dict:
+    """K4's decode form on inputs ``make(dtype)`` (q, k, v on the card):
+    the PyTorch call ``library(q, k, v)`` (a call returning the output in
+    q's layout) held against K4's plain version by ``ref.HOLD`` in f32
+    first; then, in bf16, K4, its plain version and that call timed by
+    CUDA events (back-to-back calls) and by their kernels' time on the
+    card (``kernel_ms``), and K4's split plan and bytes bound printed.
+    Returns the form's ``kernels`` row, ``launches`` its count on the main
+    path."""
+    from repro_torch.kernels.attention.attention import (decode_plan,
+                                                         flash_attention)
+    from repro_torch.kernels.attention.ref import attention_ref, hold_ratio
+
+    q, k, v = make(torch.float32)
+    want = attention_ref(q, k, v, q_offset, k_len, window, logit_cap=cap)
+    lib_ratio = hold_ratio(library(q, k, v)(), want)
+    check(lib_ratio <= 1, f"library call vs K4's plain version, {name} "
+          f"(f32): at most {lib_ratio:.3g} of the bound")
+    del q, k, v, want
+    q, k, v = make(torch.bfloat16)
+
+    def kernel():
+        return flash_attention(q, k, v, q_offset, k_len, window,
+                               logit_cap=cap)
+
+    err = float((kernel().float() - attention_ref(
+        q, k, v, q_offset, k_len, window, logit_cap=cap).float()).abs().max())
+    lib = library(q, k, v)
+    ms = time_ms(torch, kernel, 100)
+    dev_ms, names = kernel_ms(torch, kernel)
+    plain_ms = time_ms(torch, lambda: attention_ref(
+        q, k, v, q_offset, k_len, window, logit_cap=cap), 10)
+    lib_ms = time_ms(torch, lib, 100)
+    lib_dev_ms, lib_names = kernel_ms(torch, lib)
+    (n_split, split_len), live = decode_plan(k, q_offset, k_len, window)
+    bsz, kvh, hd = k.shape[0], k.shape[2], k.shape[3]
+    keys = live[-1][1] - live[0][0]
+    nbytes = (2 * bsz * keys * kvh * hd * k.element_size()
+              + 2 * q.numel() * q.element_size())  # k, v read; q, o
+    bound = nbytes / PEAK_BYTES_S * 1e3
+    ours = [c for n, (c, _) in names.items() if "decode_" in n]
+    check(ours == [1] * (1 + (n_split > 1)) and len(ours) == len(names),
+          f"K4 {name}: each call ran the split kernel and, with "
+          f"{n_split} splits, the combine kernel once, and nothing else: "
+          + "; ".join(f"{n[:60]} x{c} at {ms:.4f} ms"
+                      for n, (c, ms) in names.items()))
+    print(f"K4 {name} at q {tuple(q.shape)}, k/v {tuple(k.shape)} bf16 over "
+          f"{keys} keys: split plan {n_split} x {split_len} keys, "
+          f"{n_split * bsz * kvh} blocks ({len(live)} splits a row hold "
+          f"keys); {ms:.4f} ms a call by CUDA events, {dev_ms:.4f} ms on the "
+          f"card ({dev_ms / bound:.1f}x its bound); plain {plain_ms:.4f} ms; "
+          f"library {lib_ms:.4f} ms by events, {lib_dev_ms:.4f} ms on the "
+          f"card (" + "; ".join(f"{n[:50]} x{c} at {ms:.4f} ms"
+                                for n, (c, ms) in lib_names.items())
+          + f"); reads {nbytes / 1e6:.2f} MB, bound {bound:.4f} ms; "
+          f"library held in f32 at {lib_ratio:.3g} of the bound", flush=True)
+    return {"name": f"flash_attention ({name}, head_dim {hd})",
+            "route": "cuda", "source": "src/repro_torch/csrc/attention.cu",
+            "replaces": "src/repro/kernels/attention/attention.py:80",
+            "launches": launches, "max_abs_err": err, "ms": ms,
+            "device_ms": dev_ms, "plain_ms": plain_ms, "bound_ms": bound,
+            "bound_by": "bytes", "library_ms": lib_ms,
+            "library_device_ms": lib_dev_ms, "n_split": n_split,
+            "split_len": split_len, "blocks": n_split * bsz * kvh}
+
+
+def dense_serving_phase(torch, check, cfg, dev) -> list[dict]:
     """``cfg`` (StarCoder2-3B) served on ``dev`` with a bf16 KV cache, the
     kernel route held against K4's plain version and decode against
     forward, and K4 held and timed against its plain version and against
-    ``F.scaled_dot_product_attention``.  Returns K4's ``kernels`` row."""
+    ``F.scaled_dot_product_attention``.  Returns K4's ``kernels`` rows: the
+    prefill form (its launches the prefill's) and the decode form (the
+    serve steps')."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.attention.attention import flash_attention
@@ -668,7 +813,7 @@ def dense_serving_phase(torch, check, cfg, dev) -> dict:
     model, prompts = served_model(torch, cfg, dev)
 
     # -- the timed serve, counted, and its profile ----------------------
-    toks, launches, t_prefill, t_decode = timed_serve(
+    toks, launches, in_prefill, t_prefill, t_decode = timed_serve(
         torch, check, model, cfg, prompts, {"flash_attention": cfg.n_layers})
     profile_serve(torch, model, cfg, prompts, toks, t_prefill, t_decode)
     del model
@@ -705,7 +850,8 @@ def dense_serving_phase(torch, check, cfg, dev) -> dict:
                   f"{errs[name, dtype]:.3g}, at most {ratio:.3g} of the bound "
                   f"{u:.3g}·|want| + {r:.3g}·rms(row)")
             if dtype == torch.bfloat16:
-                cases[name] = (q, k, v)
+                if shape[1] > 1:
+                    cases[name] = (q, k, v)
                 # the hold must see one middle key tile gone wrong
                 v_bad = v.clone()
                 v_bad[:, 1024:1088] = 0
@@ -715,12 +861,20 @@ def dense_serving_phase(torch, check, cfg, dev) -> dict:
                       f"values 1024..1087 zeroed stands at {bad:.3g} of the "
                       f"bound, so it fails")
                 del v_bad
+                if shape[1] == 1:
+                    check_split_drop(torch, check, name, q, k, v, q_offset,
+                                     k_len, 0, 0.0, want)
             del q, k, v, got, want
     free_card(torch)
+    decode = decode_row(
+        torch, check, f"decode over {DECODE_LEN} keys",
+        lambda dtype: attention_inputs(torch, dev, *shapes[2][1], 2, dtype),
+        DECODE_LEN - 1, DECODE_LEN, 0, 0.0,
+        lambda q, k, v: sdpa_decode(torch, q, k, v, DECODE_LEN),
+        launches.get("flash_attention", 0)
+        - in_prefill.get("flash_attention", 0))
+    free_card(torch)
     q, k, v = cases[shapes[0][0]]
-    dq, dk, dv = cases[shapes[2][0]]
-    decode_ms = time_ms(torch, lambda: flash_attention(
-        dq, dk, dv, DECODE_LEN - 1, DECODE_LEN), 50)
     qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
 
     def library():
@@ -735,28 +889,25 @@ def dense_serving_phase(torch, check, cfg, dev) -> dict:
     clock = max_sm_clock_hz()
     t_ops, t_bytes = flops / PEAK_BF16_FLOP_S, nbytes / PEAK_BYTES_S
     t_sfu = pairs / (SFU_PER_SM_CLOCK * SMS * clock)
-    decode_bytes = 2 * b * DECODE_LEN * kvh * hd * dk.element_size()
     print(f"K4 bound at q {tuple(q.shape)}, k/v {tuple(k.shape)} bf16, "
           f"causal: {pairs:.4g} (q, k) pairs x 4·{hd} = {flops / 1e9:.1f} "
           f"GFLOP -> {t_ops * 1e3:.4f} ms at 989 TFLOP/s bf16 "
           f"({flops / PEAK_FP32_FLOP_S * 1e3:.3f} ms at 67 TFLOP/s fp32); "
           f"{nbytes / 1e6:.1f} MB -> {t_bytes * 1e3:.4f} ms; {pairs:.4g} exp "
           f"on the SFUs at {clock / 1e9:.3f} GHz -> {t_sfu * 1e3:.4f} ms.  "
-          f"Decode form: {decode_ms:.4f} ms, reads {decode_bytes / 1e6:.2f} "
-          f"MB of cache, bound {decode_bytes / PEAK_BYTES_S * 1e3:.4f} ms.  "
           f"SDPA vs plain: max |d| {lib_err:.3g}", flush=True)
     bound = max(t_ops, t_bytes, t_sfu)
-    return {"name": "flash_attention", "route": "cuda",
-            "source": "src/repro_torch/csrc/attention.cu",
-            "replaces": "src/repro/kernels/attention/attention.py:80",
-            "launches": launches.get("flash_attention", 0),
-            "max_abs_err": max(errs.values()),
-            "ms": time_ms(torch, lambda: flash_attention(q, k, v), 20),
-            "plain_ms": time_ms(torch, lambda: attention_ref(q, k, v), 3),
-            "bound_ms": bound * 1e3,
-            "bound_by": "bytes" if t_bytes >= max(t_ops, t_sfu)
-            else "operations",
-            "library_ms": time_ms(torch, library, 20)}
+    return [{"name": "flash_attention", "route": "cuda",
+             "source": "src/repro_torch/csrc/attention.cu",
+             "replaces": "src/repro/kernels/attention/attention.py:80",
+             "launches": in_prefill.get("flash_attention", 0),
+             "max_abs_err": max(errs.values()),
+             "ms": time_ms(torch, lambda: flash_attention(q, k, v), 20),
+             "plain_ms": time_ms(torch, lambda: attention_ref(q, k, v), 3),
+             "bound_ms": bound * 1e3,
+             "bound_by": "bytes" if t_bytes >= max(t_ops, t_sfu)
+             else "operations",
+             "library_ms": time_ms(torch, library, 20)}, decode]
 
 
 def hybrid_serving_phase(torch, check, cfg, dev) -> list[dict]:
@@ -764,7 +915,8 @@ def hybrid_serving_phase(torch, check, cfg, dev) -> list[dict]:
     buffers, the kernel route held against K6's and K4's plain versions
     and decode against forward past the window, and K6 and K4 (windowed,
     head_dim 256) held and timed against their plain versions.  Returns
-    K6's and the windowed K4's ``kernels`` rows."""
+    K6's, the windowed K4's and K4's decode form's (over the ring)
+    ``kernels`` rows."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.attention.attention import flash_attention
@@ -787,7 +939,7 @@ def hybrid_serving_phase(torch, check, cfg, dev) -> list[dict]:
                                   HYBRID_PROMPT)
 
     # -- the timed serve, counted, and its profile ----------------------
-    toks, launches, t_prefill, t_decode = timed_serve(
+    toks, launches, in_prefill, t_prefill, t_decode = timed_serve(
         torch, check, model, cfg, prompts,
         {"rglru_scan": n_rec, "flash_attention": n_attn})
     profile_serve(torch, model, cfg, prompts, toks, t_prefill, t_decode)
@@ -868,8 +1020,8 @@ def hybrid_serving_phase(torch, check, cfg, dev) -> list[dict]:
                   f"{errs[name, dtype]:.3g}, at most {ratio:.3g} of the bound "
                   f"{u:.3g}·|want| + {r:.3g}·rms(row)")
             if dtype == torch.bfloat16:
-                cases[name] = (q, k, v)
                 if window:  # one 64-key tile inside the last rows' window
+                    cases[name] = (q, k, v)
                     lo = (s - window // 2) // 64 * 64
                     v_bad = v.clone()
                     v_bad[:, lo:lo + 64] = 0
@@ -879,12 +1031,20 @@ def hybrid_serving_phase(torch, check, cfg, dev) -> list[dict]:
                           f"values {lo}..{lo + 63} zeroed stands at "
                           f"{bad:.3g} of the bound, so it fails")
                     del v_bad
+                else:
+                    check_split_drop(torch, check, name, q, k, v, q_offset,
+                                     k_len, window, 0.0, want)
             del q, k, v, got, want
     free_card(torch)
+    decode = decode_row(
+        torch, check, f"decode over a full ring of {win}",
+        lambda dtype: attention_inputs(torch, dev, *shapes[1][1], 11, dtype),
+        win - 1, win, 0, 0.0,
+        lambda q, k, v: sdpa_decode(torch, q, k, v, win),
+        launches.get("flash_attention", 0)
+        - in_prefill.get("flash_attention", 0))
+    free_card(torch)
     q, k, v = cases[shapes[0][0]]
-    dq, dk, dv = cases[shapes[1][0]]
-    decode_ms = time_ms(torch, lambda: flash_attention(
-        dq, dk, dv, win - 1, win), 50)
     qt = q.transpose(1, 2).contiguous()
     kt, vt = (t.transpose(1, 2).expand(-1, h, -1, -1).contiguous()
               for t in (k, v))
@@ -903,21 +1063,18 @@ def hybrid_serving_phase(torch, check, cfg, dev) -> list[dict]:
     clock = max_sm_clock_hz()
     t_ops, t_bytes = flops / PEAK_BF16_FLOP_S, nbytes / PEAK_BYTES_S
     t_sfu = pairs / (SFU_PER_SM_CLOCK * SMS * clock)
-    decode_bytes = 2 * bsz * win * kvh * hd * dk.element_size()
     print(f"K4 bound at q {tuple(q.shape)}, k/v {tuple(k.shape)} bf16, "
           f"window {win}: {pairs:.4g} (q, k) pairs x 4·{hd} = "
           f"{flops / 1e9:.1f} GFLOP -> {t_ops * 1e3:.4f} ms at 989 TFLOP/s "
           f"bf16 ({flops / PEAK_FP32_FLOP_S * 1e3:.3f} ms at 67 TFLOP/s "
           f"fp32); {nbytes / 1e6:.1f} MB -> {t_bytes * 1e3:.4f} ms; "
           f"{pairs:.4g} exp on the SFUs at {clock / 1e9:.3f} GHz -> "
-          f"{t_sfu * 1e3:.4f} ms.  Decode form over the ring: "
-          f"{decode_ms:.4f} ms, reads {decode_bytes / 1e6:.2f} MB, bound "
-          f"{decode_bytes / PEAK_BYTES_S * 1e3:.4f} ms.  SDPA (banded mask) "
-          f"vs plain: max |d| {lib_err:.3g}", flush=True)
+          f"{t_sfu * 1e3:.4f} ms.  SDPA (banded mask) vs plain: max |d| "
+          f"{lib_err:.3g}", flush=True)
     k4_row = {"name": f"flash_attention (window {win}, head_dim {hd})",
               "route": "cuda", "source": "src/repro_torch/csrc/attention.cu",
               "replaces": "src/repro/kernels/attention/attention.py:80",
-              "launches": launches.get("flash_attention", 0),
+              "launches": in_prefill.get("flash_attention", 0),
               "max_abs_err": max(errs.values()),
               "ms": time_ms(torch, lambda: flash_attention(
                   q, k, v, window=win), 10),
@@ -927,7 +1084,7 @@ def hybrid_serving_phase(torch, check, cfg, dev) -> list[dict]:
               "bound_by": "bytes" if t_bytes >= max(t_ops, t_sfu)
               else "operations",
               "library_ms": time_ms(torch, library, 10)}
-    return [k6_row, k4_row]
+    return [k6_row, k4_row, decode]
 
 
 def audio_phase(torch, check, cfg, dev) -> dict:
@@ -1104,12 +1261,14 @@ def capped_inputs(torch, dev, bsz, sq, sk, h, kvh, d, seed, q_offset, cap):
     return q, scores_over_cap(q, 30 * k, cap, q_offset), v
 
 
-def flex_capped(torch, qt, kt, vt, window, cap):
+def flex_capped(torch, qt, kt, vt, window, cap, causal=True):
     """K4's capped causal function, with ``window`` > 0 its band, as one
     PyTorch call for ``library_ms``: ``flex_attention`` with the soft-cap
     ``cap·tanh(s/cap)`` as its score_mod and the mask as its block mask,
-    compiled once (one compile thread, its caches in the build directory).
-    qt (B, H, S, hd), kt/vt (B, KV, S, hd).  Returns the call."""
+    compiled once (one compile thread, its caches in the build directory);
+    not ``causal``: no mask (the decode form over its keys alone).  qt
+    (B, H, Sq, hd), kt/vt (B, KV, Sk, hd).  Returns the call."""
+    import torch._dynamo.config as dynamo_config
     import torch._inductor.config as inductor_config
     from torch.nn.attention.flex_attention import (create_block_mask,
                                                    flex_attention)
@@ -1121,6 +1280,8 @@ def flex_capped(torch, qt, kt, vt, window, cap):
     os.environ.setdefault("TRITON_CACHE_DIR", os.path.join(BUILD_DIR,
                                                            "triton"))
     inductor_config.compile_threads = 1
+    # one compile per shape and dtype: the prefill and decode forms take 8
+    dynamo_config.cache_size_limit = max(dynamo_config.cache_size_limit, 32)
     s = qt.shape[2]
 
     def softcap(score, b, h, q_idx, kv_idx):
@@ -1130,10 +1291,27 @@ def flex_capped(torch, qt, kt, vt, window, cap):
         keep = q_idx >= kv_idx
         return keep & (q_idx - kv_idx < window) if window else keep
 
-    block_mask = create_block_mask(mask, None, None, s, s, device=qt.device)
+    block_mask = (create_block_mask(mask, None, None, s, s, device=qt.device)
+                  if causal else None)
     flex = torch.compile(flex_attention, dynamic=False)
     return lambda: flex(qt, kt, vt, score_mod=softcap, block_mask=block_mask,
                         scale=qt.shape[-1] ** -0.5, enable_gqa=True)
+
+
+def flex_decode(torch, q, k, v, q_offset, k_len, window, cap):
+    """K4's capped decode form as one PyTorch call for ``library_ms``:
+    ``flex_capped`` (no mask) of the one query over the keys it sees (from
+    the first live split of K4's plan to the end of its last), copied out
+    of the cache into the (B, KV, keys, hd) layout outside the call.
+    Returns the call, its output in q's layout."""
+    from repro_torch.kernels.attention.attention import decode_plan
+
+    _, live = decode_plan(k, q_offset, k_len, window)
+    lo, n_keys = live[0][0], live[-1][1]
+    qt = q.transpose(1, 2).contiguous()
+    kt, vt = (t[:, lo:n_keys].transpose(1, 2).contiguous() for t in (k, v))
+    flex = flex_capped(torch, qt, kt, vt, 0, cap, causal=False)
+    return lambda: flex().transpose(1, 2)
 
 
 def gemma2_serving_phase(torch, check, cfg, dev) -> list[dict]:
@@ -1148,9 +1326,10 @@ def gemma2_serving_phase(torch, check, cfg, dev) -> list[dict]:
     import torch.nn.functional as F
 
     from repro_torch.kernels.attention.attention import (
-        CAPPED, CAPPED_WINDOWED, flash_attention)
+        CAPPED, CAPPED_WINDOWED, decode_plan, flash_attention)
     from repro_torch.kernels.attention.ref import (HOLD, attention_ref,
-                                                   hold_ratio)
+                                                   hold_ratio,
+                                                   scores_over_cap)
     from repro_torch.models import attention, init_params
 
     hd, h, kvh = cfg.resolved_head_dim, cfg.n_heads, cfg.n_kv_heads
@@ -1166,7 +1345,7 @@ def gemma2_serving_phase(torch, check, cfg, dev) -> list[dict]:
                                   GEMMA2_PROMPT)
 
     # -- the timed serve, counted, and its profile ----------------------
-    toks, launches, t_prefill, t_decode = timed_serve(
+    toks, launches, in_prefill, t_prefill, t_decode = timed_serve(
         torch, check, model, cfg, prompts,
         {CAPPED: n_global, CAPPED_WINDOWED: n_local})
     check(launches.get("flash_attention", 0) == 0,
@@ -1200,13 +1379,25 @@ def gemma2_serving_phase(torch, check, cfg, dev) -> list[dict]:
     holds = ([(i, bf16, bf16) for i in range(4)]
              + [(i, f32, f32) for i in (0, 1)]
              + [(i, f32, bf16) for i in (2, 3)])
+
+    def capped_case(i, q_dtype, kv_dtype):
+        """Form i's inputs (``capped_inputs``); in the decode forms also
+        the first key of the middle split that holds keys (of K4's split
+        plan) scores 2·cap, so that the split carries weight in every
+        row."""
+        _, shape, q_offset, k_len, window = forms[i]
+        q, k, v = capped_inputs(torch, dev, *shape, i + 30, q_offset, cap)
+        if shape[1] == 1:
+            _, live = decode_plan(k, q_offset, k_len, window)
+            k = scores_over_cap(q, k, cap, live[(len(live) - 1) // 2][0])
+        return q.to(q_dtype), k.to(kv_dtype), v.to(kv_dtype)
+
     cases, errs, flex_ratio = {}, {}, {}
     for i, q_dtype, kv_dtype in holds:
         name, shape, q_offset, k_len, window = forms[i]
         label = (str(q_dtype)[6:] if q_dtype == kv_dtype
                  else "f32 q, bf16 k/v")
-        q, k, v = capped_inputs(torch, dev, *shape, i + 30, q_offset, cap)
-        q, k, v = q.to(q_dtype), k.to(kv_dtype), v.to(kv_dtype)
+        q, k, v = capped_case(i, q_dtype, kv_dtype)
         got = flash_attention(q, k, v, q_offset, k_len, window,
                               logit_cap=cap)
         want = attention_ref(q, k, v, q_offset, k_len, window,
@@ -1231,6 +1422,9 @@ def gemma2_serving_phase(torch, check, cfg, dev) -> list[dict]:
             check(bad > 1, f"K4 hold, {name} ({label}): the plain "
                   f"version without the window stands at {bad:.3g} of "
                   f"the bound, so it fails")
+        if shape[1] == 1:
+            check_split_drop(torch, check, f"{name} ({label})", q, k, v,
+                             q_offset, k_len, window, cap, want)
         if q_dtype == f32 == kv_dtype:
             # the library call of the rows below computes K4's function:
             # held like K4 in f32, where its arithmetic is exact enough
@@ -1242,7 +1436,7 @@ def gemma2_serving_phase(torch, check, cfg, dev) -> list[dict]:
                   f"flex_attention vs K4's plain version, {name} (f32): at "
                   f"most {flex_ratio[name]:.3g} of the bound")
             del qt, kt, vt
-        if q_dtype != kv_dtype or q_dtype == bf16:
+        if shape[1] > 1 and q_dtype == bf16 or q_dtype != kv_dtype:
             cases[name, label] = (q, k, v)
         del q, k, v, got, want
         free_card(torch)
@@ -1252,7 +1446,7 @@ def gemma2_serving_phase(torch, check, cfg, dev) -> list[dict]:
     rows, timings = [], []
     for (name, shape, q_offset, k_len, window), key in (
             (forms[0], CAPPED), (forms[1], CAPPED_WINDOWED)):
-        q, k, v = cases[name, "bfloat16"]
+        q, k, v = cases.pop((name, "bfloat16"))
         pairs = b * h * sum(min(i + 1, window or s) for i in range(s))
         flops = 4 * hd * pairs
         nbytes = 2 * (q.numel() + k.numel()) * q.element_size()
@@ -1299,27 +1493,44 @@ def gemma2_serving_phase(torch, check, cfg, dev) -> list[dict]:
                      "route": "cuda",
                      "source": "src/repro_torch/csrc/attention.cu",
                      "replaces": "src/repro/kernels/attention/attention.py:80",
-                     "launches": launches.get(key, 0),
+                     "launches": in_prefill.get(key, 0),
                      "max_abs_err": max(e for (n, _), e in errs.items()
                                         if n == name),
                      "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
                      "bound_by": "bytes" if t_bytes >= max(t_ops, t_sfu)
                      else "operations",
                      "library_ms": flex_ms})
-    for name, _, q_offset, k_len, window in forms[2:]:
-        for label in ("bfloat16", "f32 q, bf16 k/v"):
-            q, k, v = cases[name, label]
-            keys = min(k_len, window or k_len)
-            nbytes = 2 * b * keys * kvh * hd * k.element_size()
-            ms = time_ms(torch, lambda: flash_attention(
-                q, k, v, q_offset, k_len, window, logit_cap=cap), 50)
-            plain_ms = time_ms(torch, lambda: attention_ref(
-                q, k, v, q_offset, k_len, window, logit_cap=cap), 10)
-            timings.append(
-                f"{name} ({label}): {ms:.4f} ms, plain {plain_ms:.4f} ms "
-                f"({'slower' if ms > plain_ms else 'faster'} than its plain "
-                f"version), reads {nbytes / 1e6:.2f} MB of cache, bound "
-                f"{nbytes / PEAK_BYTES_S * 1e3:.4f} ms")
+        del q, k, v
+    free_card(torch)
+    for i, key in ((2, CAPPED), (3, CAPPED_WINDOWED)):
+        name, _, q_offset, k_len, window = forms[i]
+        rows.append(decode_row(
+            torch, check, f"capped {name}",
+            lambda dtype, i=i: capped_case(i, dtype, dtype), q_offset, k_len,
+            window, cap,
+            lambda q, k, v, q_offset=q_offset, k_len=k_len, window=window:
+            flex_decode(torch, q, k, v, q_offset, k_len, window, cap),
+            launches.get(key, 0) - in_prefill.get(key, 0)))
+        free_card(torch)
+        q, k, v = cases[name, "f32 q, bf16 k/v"]
+        keys = min(k_len, window or k_len)
+        nbytes = 2 * b * keys * kvh * hd * k.element_size()
+
+        def kernel(q=q, k=k, v=v, q_offset=q_offset, k_len=k_len,
+                   window=window):
+            return flash_attention(q, k, v, q_offset, k_len, window,
+                                   logit_cap=cap)
+
+        ms = time_ms(torch, kernel, 100)
+        dev_ms, _ = kernel_ms(torch, kernel)
+        plain_ms = time_ms(torch, lambda: attention_ref(
+            q, k, v, q_offset, k_len, window, logit_cap=cap), 10)
+        timings.append(
+            f"{name} (f32 q, bf16 k/v): {ms:.4f} ms by CUDA events, "
+            f"{dev_ms:.4f} ms on the card, plain {plain_ms:.4f} ms, reads "
+            f"{nbytes / 1e6:.2f} MB of cache, bound "
+            f"{nbytes / PEAK_BYTES_S * 1e3:.4f} ms")
+        del q, k, v
     print("K4 capped decode forms: " + "; ".join(timings), flush=True)
     return rows
 
@@ -1580,7 +1791,7 @@ def main() -> int:
     print(f"serving phase: {time.perf_counter() - t0:.1f} s", flush=True)
     free_card(torch)
     t0 = time.perf_counter()
-    rows.append(dense_serving_phase(torch, check, get_config(DENSE_ARCH),
+    rows.extend(dense_serving_phase(torch, check, get_config(DENSE_ARCH),
                                     dev))
     print(f"dense serving phase: {time.perf_counter() - t0:.1f} s",
           flush=True)

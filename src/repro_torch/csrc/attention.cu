@@ -55,24 +55,30 @@
 // 103 GFLOP, 0.104 ms on the tensor cores at 989 TFLOP/s (1.54 ms on the
 // f32 cores at 67 TFLOP/s); q, k, v and o once each are 109 MB, 0.033 ms at
 // 3.35 TB/s; the 2.0e8 exps take 0.048 ms on the special-function units.
-// So the operations bound it.  A decode launch reads about 8.5 MB of cache,
-// 2.5 us.  At RecurrentGemma-9B's prefill shape (B 2, S 4096, H 16 over KV 1,
-// hd 256, window 2048, bf16): each (b, h) keeps 2048·2049/2 + 2048·2048 =
-// 6.29e6 pairs, 2.01e8 in all, 206 GFLOP at 4·256 a pair, 0.208 ms at
-// 989 TFLOP/s; about 142 MB, 0.042 ms; the exps 0.048 ms.  The operations
-// bound it.  Its decode form over a full ring (B 2, 2048 keys) reads about
-// 4.2 MB, 1.3 us.  At HuBERT-XLarge's encoder shape (B 8, S 1499, H 16 over
-// KV 16, hd 80, bf16, non-causal): 8·16·1499² = 2.876e8 pairs, 92.0 GFLOP at
-// 4·80 a pair, 0.093 ms at 989 TFLOP/s (1.37 ms on the f32 cores); q, k, v
-// and o 122.8 MB, 0.037 ms; the exps 0.069 ms.  The operations bound it.
+// So the operations bound it.  At RecurrentGemma-9B's prefill shape (B 2,
+// S 4096, H 16 over KV 1, hd 256, window 2048, bf16): each (b, h) keeps
+// 2048·2049/2 + 2048·2048 = 6.29e6 pairs, 2.01e8 in all, 206 GFLOP at 4·256
+// a pair, 0.208 ms at 989 TFLOP/s; about 142 MB, 0.042 ms; the exps
+// 0.048 ms.  The operations bound it.  At HuBERT-XLarge's encoder shape
+// (B 8, S 1499, H 16 over KV 16, hd 80, bf16, non-causal): 8·16·1499² =
+// 2.876e8 pairs, 92.0 GFLOP at 4·80 a pair, 0.093 ms at 989 TFLOP/s (1.37
+// ms on the f32 cores); q, k, v and o 122.8 MB, 0.037 ms; the exps
+// 0.069 ms.  The operations bound it.
 // At Gemma2-2B's prefill shape (B 2, S 8160, H 8 over KV 4, hd 256, bf16,
 // cap 50): a global layer keeps 2·8·8160·8161/2 = 5.327e8 pairs, 545.5
 // GFLOP, 0.552 ms at 989 TFLOP/s; a local layer (window 4096) 4.006e8
 // pairs, 410.2 GFLOP, 0.415 ms; each pair takes an exp and a tanh, 0.255
 // and 0.192 ms on the special-function units; q, k, v and o 201 MB,
-// 0.060 ms.  The tensor-core operations bound both.  Its decode form over
-// 8,161 keys (B 2) reads 66.8 MB of cache, 20 us (33.5 MB, 10 us, over a
-// local layer's 4,096).
+// 0.060 ms.  The tensor-core operations bound both.
+// The decode form (Sq 1) is bound by the bytes of cache it reads, each key
+// and value row once: 4·hd bytes a key and KV head in bf16 (8·hd in f32)
+// against 4·hd FLOP a key and query head, so G FLOP a byte in bf16 (2 at
+// Gemma2-2B, 12 at StarCoder2-3B, 16 at RecurrentGemma-9B), under the 20
+// a byte at which the f32 CUDA cores (67 TFLOP/s) would bind instead.
+// StarCoder2-3B (B 4, KV 2, hd 128) at 2,049 keys reads 8.4 MB, 2.5 us;
+// RecurrentGemma-9B's full ring (B 2, KV 1, hd 256, 2,048 keys) 4.2 MB,
+// 1.3 us; Gemma2-2B (B 2, KV 4, hd 256) over 8,161 keys 66.8 MB, 20 us, and
+// over a local layer's 4,096 33.5 MB, 10 us.
 //
 // Design (a simple first kernel: f32 arithmetic on the CUDA cores, no
 // tensor cores, no asynchronous copies).
@@ -94,27 +100,54 @@
 //    Shared rows of q and k are padded to hd + 4 floats, so that the float4
 //    reads of a quarter warp (8 rows tx apart) fall in distinct banks: the
 //    row stride is 4 banks mod 32 at hd 32, 64, 128 and 256 and 20 at hd 80,
-//    and 20·tx mod 32 (tx < 8) covers 8 distinct groups of 4 banks.
-//  * Decode form (Sq = 1): one block per (KV head, batch row) serves the
-//    head's whole query group (up to 16 query heads), so each key and value
-//    row is read from memory once for the group.  Keys go in chunks of 256
-//    from the window's first key, one per thread for q·kᵀ; warp w runs the
-//    online softmax of query heads w and w+8 over the chunk in shared
-//    memory; then each thread accumulates p·v for one head-dim column of
-//    its heads, reading v rows coalesced (hd must divide 256, so not 80).
-//    q and the cache are read in their own dtypes and converted to f32 in
-//    registers.  At hd 256 the prefill's shared memory is 216,064 bytes,
-//    one block an SM (232,448 at most), and a thread holds 4 x 16
-//    accumulators; the decode form gives each thread one head-dim column of
-//    all 16 heads.  At hd 80 the prefill takes 80,896 bytes, two blocks an
-//    SM, and 4 x 5 accumulators a thread; at hd 32 44,032 bytes and 4 x 2.
-//    The decode form runs B·KV blocks only (8 at Gemma2-2B's batch 2), each
-//    over its whole window of keys: slow over a long cache, left for a
-//    split-KV redesign.
+//    and 20·tx mod 32 (tx < 8) covers 8 distinct groups of 4 banks.  At hd
+//    256 its shared memory is 216,064 bytes, one block an SM (232,448 at
+//    most), and a thread holds 4 x 16 accumulators; at hd 80 80,896 bytes,
+//    two blocks an SM, and 4 x 5; at hd 32 44,032 bytes and 4 x 2.
+//  * Decode form (Sq = 1): split-KV ("flash-decoding"), so that a short
+//    batch fills the card.  The wrapper (kernels/attention/attention.py::
+//    decode_splits) cuts the keys a query may see -- the cache's Sk, or
+//    the window where it is shorter -- into n_split splits of split_len
+//    from the cache's shape, the window and the SM count alone: two blocks
+//    an SM (the most that fit at once) where splits of 64 keys or more
+//    allow it, so the launch is the same at every decode step over one
+//    cache.  Split j takes keys k_first + j·split_len onwards, so that a
+//    window's splits are all live (with splits fixed at 0, j·split_len,
+//    half of a 4,096-key window's blocks over an 8,192-position cache
+//    would find no key).  decode_split_kernel runs one block of 8 warps
+//    per (split, KV head, batch row); it serves the head's whole query
+//    group (up to 16 heads), so each key and value row is read from
+//    memory once for the group.  q, scaled, waits in shared memory in f32.
+//    The warps split the group into head groups of at most 4 heads at hd
+//    256, 8 at hd 64 and 128, 16 at hd 32 (32 or 16 accumulators a lane)
+//    and take the split's keys in batches of U (8, 4 or 2: the most whose
+//    k and v slices fit a lane's register budget, decode_batch), the head
+//    group's warps in turn.  The 32 lanes split hd, so a warp reads each k and v row in one
+//    coalesced sweep (hd 256 bf16: 16 bytes a lane) and keeps a batch's
+//    rows in flight at once; the
+//    partial dot products meet by __shfl_xor_sync (a reduce-scatter of
+//    the batch's U sums: U + 4 - log2 U shuffles, then U to share the
+//    scores, not 5·U), and each warp keeps the
+//    online softmax (max, sum, hd/32 accumulators a lane) of its heads in
+//    registers.  Then the warps' partials meet in shared memory (reusing
+//    q's) and the block writes its split's max m, sum l and unnormalised
+//    acc[G][hd] in f32 to the workspace the wrapper passes; with
+//    n_split 1 it writes o itself.  A split past n_keys (a step before
+//    the cache holds a full window or Sk keys) writes l = 0, m = -inf and
+//    returns.  decode_combine_kernel, one block
+//    of hd threads per (query head, batch row), stages the splits' (m, l)
+//    in shared memory, takes m* = max m_s over the splits with l_s > 0
+//    and, its loads of acc_s in flight together, writes o = Σ e^(m_s - m*)·acc_s / max(Σ
+//    e^(m_s - m*)·l_s, 1e-30), rounded to q's dtype once.  The sums are
+//    f32 in another order than the plain version's (ref.HOLD's r term).
+//    Two launches a call (one when n_split is 1), no atomics, no host
+//    synchronisation: safe to capture in a CUDA graph.  hd must be a
+//    multiple of 32 (not 80).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <cmath>
 #include <type_traits>
 
 namespace {
@@ -123,7 +156,6 @@ constexpr float kNegInf = -1e30f;
 constexpr int kThreads = 256;
 constexpr int kBQ = 64;            // query rows per block (prefill form)
 constexpr int kBK = 64;            // keys per tile (prefill form)
-constexpr int kChunk = kThreads;   // keys per chunk (decode form)
 constexpr int kMaxGroups = 16;     // query heads per KV head (decode form)
 
 __device__ __forceinline__ float4 load4(const float* p) {
@@ -171,15 +203,30 @@ __device__ __forceinline__ float sum16(float x) {
   for (int o = 8; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
   return x;
 }
-__device__ __forceinline__ float max32(float x) {
+
+// Sums U partial values (one per key) over the warp's 32 lanes: halving
+// exchanges leave lane t with key t >> (5 - log2 U), whose sum the last
+// 5 - log2 U butterfly steps complete.  U - 1 + 5 - log2 U shuffles, not
+// 5·U.  Returns this lane's key's sum; x is clobbered.
+template <int U>
+__device__ __forceinline__ float sum32_scatter(float (&x)[U], int lane) {
+  static_assert(U == 2 || U == 4 || U == 8, "U: 2, 4 or 8");
+  constexpr int L = U == 8 ? 3 : (U == 4 ? 2 : 1);
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-__device__ __forceinline__ float sum32(float x) {
+  for (int n = U, o = 16; n > 1; n >>= 1, o >>= 1) {
+    const bool up = (lane & o) != 0;
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
+    for (int i = 0; i < n / 2; ++i) {
+      const float send = up ? x[i] : x[i + n / 2];
+      const float keep = up ? x[i + n / 2] : x[i];
+      x[i] = keep + __shfl_xor_sync(0xffffffffu, send, o);
+    }
+  }
+  float r = x[0];
+#pragma unroll
+  for (int o = 16 >> L; o > 0; o >>= 1)
+    r += __shfl_xor_sync(0xffffffffu, r, o);
+  return r;
 }
 
 template <int HD>
@@ -352,127 +399,323 @@ prefill_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-// TQ: the query's (and the output's) type, TKV the cache's
+// A lane's slice of a k or v row: E consecutive values of T, kept in
+// registers as loaded (bf16 pairs in 32-bit words) and widened to f32 at
+// use.  at(i) takes a compile-time i once its loop is unrolled.
+template <typename T, int E>
+struct Slice;
+
+template <int E>
+struct Slice<float, E> {
+  float x[E];
+  __device__ __forceinline__ void load(const float* p) {
+    if constexpr (E >= 4) {
+#pragma unroll
+      for (int i = 0; i < E; i += 4) {
+        const float4 t = load4(p + i);
+        x[i] = t.x; x[i + 1] = t.y; x[i + 2] = t.z; x[i + 3] = t.w;
+      }
+    } else if constexpr (E == 2) {
+      const float2 t = *reinterpret_cast<const float2*>(p);
+      x[0] = t.x; x[1] = t.y;
+    } else {
+      x[0] = *p;
+    }
+  }
+  __device__ __forceinline__ void zero() {
+#pragma unroll
+    for (int i = 0; i < E; ++i) x[i] = 0.f;
+  }
+  __device__ __forceinline__ float at(int i) const { return x[i]; }
+};
+
+template <int E>
+struct Slice<__nv_bfloat16, E> {
+  static constexpr int W = E >= 2 ? E / 2 : 1;  // 32-bit words
+  unsigned w[W];
+  __device__ __forceinline__ void load(const __nv_bfloat16* p) {
+    if constexpr (E == 8) {
+      const uint4 t = *reinterpret_cast<const uint4*>(p);
+      w[0] = t.x; w[1] = t.y; w[2] = t.z; w[3] = t.w;
+    } else if constexpr (E == 4) {
+      const uint2 t = *reinterpret_cast<const uint2*>(p);
+      w[0] = t.x; w[1] = t.y;
+    } else if constexpr (E == 2) {
+      w[0] = *reinterpret_cast<const unsigned*>(p);
+    } else {
+      w[0] = *reinterpret_cast<const unsigned short*>(p);
+    }
+  }
+  __device__ __forceinline__ void zero() {
+#pragma unroll
+    for (int i = 0; i < W; ++i) w[i] = 0u;
+  }
+  // value i of the slice: the low half of a word comes first in memory
+  __device__ __forceinline__ float at(int i) const {
+    const unsigned u = w[i >> 1];
+    return __uint_as_float((i & 1) ? (u & 0xffff0000u) : (u << 16));
+  }
+};
+
+constexpr int kWarps = kThreads / 32;
+
+// query heads a warp of the decode form may own: its accumulators are
+// heads x hd/32 floats a lane (32 at hd 128 and 256, 16 at hd 32 and 64)
+template <int HD>
+__host__ __device__ constexpr int decode_heads_per_warp() {
+  return HD >= 128 ? 1024 / HD : (HD == 64 ? 8 : kMaxGroups);
+}
+// keys a warp of the decode form loads at once: the largest U of 8, 4 and
+// 2 whose k and v slices (2·U of a lane's hd/32 values), the heads'
+// accumulators, max and sum (GW·(hd/32 + 2)) and scores (U) take at most
+// 84 registers a lane, so that a thread fits in 128 (two blocks of 256
+// an SM) without spilling: 4 at hd 128 and 256 over bf16, 2 at hd 256
+// over f32, 4 at hd 128 over f32, 8 at hd 32 and 64
+template <typename TKV, int HD>
+__host__ __device__ constexpr int decode_batch() {
+  constexpr int E = HD / 32, GW = decode_heads_per_warp<HD>();
+  constexpr int slice = (E * (int)sizeof(TKV) + 3) / 4;  // registers
+  for (int u = 8; u > 2; u /= 2)
+    if (2 * u * slice + GW * (E + 2) + u <= 84) return u;
+  return 2;
+}
+
+// One block per (split, KV head, batch row) over split j's keys,
+// [k_first + j·split_len, k_first + (j+1)·split_len) within n_keys.  TQ:
+// the query's (and the output's) type, TKV the cache's.  With gridDim.x
+// (n_split) 1 it writes o; else its partial (m, l, acc) to ws, laid out
+// [B][KV][n_split][G][hd] (acc), then [B][KV][n_split][G][2] (m, l).
 template <typename TQ, typename TKV, int HD>
-__global__ void __launch_bounds__(kThreads)
-decode_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k,
-              const TKV* __restrict__ v, TQ* __restrict__ o, int Sk, int H,
-              int KV, int k_first, int n_keys, float scale, float cap) {
-  constexpr int GS = kThreads / HD;           // head stride in p·v: 8 .. 1
-  constexpr int NG = kMaxGroups / GS;         // heads a thread may own in p·v
-  __shared__ __align__(16) float q_s[kMaxGroups][HD];
-  __shared__ float s_s[kMaxGroups][kChunk];   // scores, then p
-  __shared__ float alpha_s[kMaxGroups], l_s[kMaxGroups];
+__global__ void __launch_bounds__(kThreads, 2)
+decode_split_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k,
+                    const TKV* __restrict__ v, TQ* __restrict__ o,
+                    float* __restrict__ ws, int Sk, int H, int KV,
+                    int k_first, int n_keys, int split_len, float scale,
+                    float cap) {
+  constexpr int E = HD / 32;                           // values a lane
+  constexpr int GW = decode_heads_per_warp<HD>();
+  constexpr int U = decode_batch<TKV, HD>();
+  constexpr int LU = U == 8 ? 3 : (U == 4 ? 2 : 1);     // log2 U
+  constexpr int kBuf = kWarps * GW * HD > kMaxGroups * HD
+                           ? kWarps * GW * HD : kMaxGroups * HD;
+  // q (scaled, [G][HD]) during the key loop, then the warps' partial
+  // accumulators ([key slot][G][HD])
+  __shared__ __align__(16) float buf[kBuf];
+  __shared__ float m_s[kWarps][kMaxGroups], l_s[kWarps][kMaxGroups];
 
   const int G = H / KV;
+  const int n_split = gridDim.x, split = blockIdx.x;
+  const int kvh = blockIdx.y, b = blockIdx.z;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int kvh = blockIdx.x, b = blockIdx.y;
-  const long long kv_row = (long long)KV * HD;
+  const long long s0 = k_first + (long long)split * split_len;
+  const int lo = (int)min(s0, (long long)n_keys);
+  const int hi = (int)min((long long)n_keys, s0 + split_len);
+  const long long part = ((long long)b * KV + kvh) * n_split + split;
+  float* ws_ml = ws + (long long)gridDim.z * KV * n_split * G * HD;
+  if (lo >= hi) {  // an empty split (never with n_split 1)
+    for (int g = tid; g < G; g += kThreads) {
+      ws_ml[(part * G + g) * 2] = -INFINITY;
+      ws_ml[(part * G + g) * 2 + 1] = 0.f;
+    }
+    return;
+  }
+
+  // warp = ks·n_hg + hg: head group hg (heads g0 .. g0 + gc - 1), key slot
+  // ks of the group's KS; warps past n_hg·KS idle
+  const int n_hg = (G + GW - 1) / GW;
+  const int gpw = (G + n_hg - 1) / n_hg;
+  const int KS = kWarps / n_hg;
+  const int hg = warp % n_hg, ks = warp / n_hg;
+  const int g0 = hg * gpw, gc = min(gpw, G - g0);
+  const bool active = ks < KS && gc > 0;
+
   const long long q_off = ((long long)b * H + (long long)kvh * G) * HD;
-  const TKV* kb = k + (long long)b * Sk * kv_row + (long long)kvh * HD;
-  const TKV* vb = v + (long long)b * Sk * kv_row + (long long)kvh * HD;
   for (int i = tid; i < G * HD; i += kThreads)
-    q_s[i / HD][i % HD] = to_f32(q[q_off + i]) * scale;
+    buf[i] = to_f32(q[q_off + i]) * scale;
+  __syncthreads();
 
-  const int d = tid % HD, g0 = tid / HD;  // this thread's column in p·v
-  float acc[NG];
+  float m[GW], l[GW], acc[GW][E];
 #pragma unroll
-  for (int i = 0; i < NG; ++i) acc[i] = 0.f;
-  float m_w[2] = {kNegInf, kNegInf}, l_w[2] = {0.f, 0.f};  // heads w, w+8
-
-  for (int c0 = k_first; c0 < n_keys; c0 += kChunk) {
-    __syncthreads();  // q_s is staged; the last chunk's readers are done
-    const int key = c0 + tid;
-    float sc[kMaxGroups];
+  for (int i = 0; i < GW; ++i) {
+    m[i] = -INFINITY;
+    l[i] = 0.f;
 #pragma unroll
-    for (int g = 0; g < kMaxGroups; ++g) sc[g] = 0.f;
-    if (key < n_keys) {
-      const TKV* kr = kb + key * kv_row;
-#pragma unroll 2
-      for (int c = 0; c < HD; c += 4) {
-        const float4 kx = load4(kr + c);
+    for (int e = 0; e < E; ++e) acc[i][e] = 0.f;
+  }
+  if (active) {
+    const long long kv_row = (long long)KV * HD;
+    const long long base = (long long)b * Sk * kv_row +
+                           (long long)kvh * HD + lane * E;
+    const TKV* kb = k + base;
+    const TKV* vb = v + base;
+    for (int k0 = lo + ks * U; k0 < hi; k0 += KS * U) {
+      // the batch's rows in flight together; zeros past hi, never junk
+      Slice<TKV, E> kr[U], vr[U];
 #pragma unroll
-        for (int g = 0; g < kMaxGroups; ++g) {
-          if (g < G) {
-            const float4 qa = load4(&q_s[g][c]);
-            sc[g] = fmaf(qa.x, kx.x, sc[g]);
-            sc[g] = fmaf(qa.y, kx.y, sc[g]);
-            sc[g] = fmaf(qa.z, kx.z, sc[g]);
-            sc[g] = fmaf(qa.w, kx.w, sc[g]);
-          }
+      for (int u = 0; u < U; ++u) {
+        if (k0 + u < hi) {
+          kr[u].load(kb + (k0 + u) * kv_row);
+          vr[u].load(vb + (k0 + u) * kv_row);
+        } else {
+          kr[u].zero();
+          vr[u].zero();
+        }
+      }
+      const int mine = k0 + (lane >> (5 - LU));  // this lane's key's score
+#pragma unroll
+      for (int gi = 0; gi < GW; ++gi) {
+        if (gi >= gc) break;  // the same for the whole warp
+        Slice<float, E> qv;   // this lane's columns of the scaled query
+        qv.load(buf + (g0 + gi) * HD + lane * E);
+        float s[U];
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+          s[u] = 0.f;
+#pragma unroll
+          for (int e = 0; e < E; ++e)
+            s[u] = fmaf(qv.at(e), kr[u].at(e), s[u]);
+        }
+        float sc = sum32_scatter<U>(s, lane);
+        sc = mine < hi ? soft_cap(sc, cap) : -INFINITY;
+        float mx = m[gi];
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+          s[u] = __shfl_sync(0xffffffffu, sc, u << (5 - LU));
+          mx = fmaxf(mx, s[u]);
+        }
+        // mx is finite: key k0 < hi is in every batch
+        const float alpha = expf(m[gi] - mx);
+        float psum = 0.f;
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+          s[u] = expf(s[u] - mx);
+          psum += s[u];
+        }
+        l[gi] = l[gi] * alpha + psum;
+        m[gi] = mx;
+#pragma unroll
+        for (int e = 0; e < E; ++e) {
+          float a = acc[gi][e] * alpha;
+#pragma unroll
+          for (int u = 0; u < U; ++u) a = fmaf(s[u], vr[u].at(e), a);
+          acc[gi][e] = a;
         }
       }
     }
-#pragma unroll
-    for (int g = 0; g < kMaxGroups; ++g)
-      if (g < G) s_s[g][tid] = key < n_keys ? soft_cap(sc[g], cap) : kNegInf;
-    __syncthreads();
-
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const int g = warp + 8 * r;
-      if (g >= G) continue;  // the same for the whole warp
-      float mx = kNegInf;
-      for (int i = lane; i < kChunk; i += 32) mx = fmaxf(mx, s_s[g][i]);
-      const float m_new = fmaxf(m_w[r], max32(mx));
-      float sum = 0.f;
-      for (int i = lane; i < kChunk; i += 32) {
-        const float p = expf(s_s[g][i] - m_new);
-        s_s[g][i] = p;
-        sum += p;
-      }
-      const float alpha = expf(m_w[r] - m_new);
-      l_w[r] = l_w[r] * alpha + sum32(sum);
-      m_w[r] = m_new;
-      if (lane == 0) alpha_s[g] = alpha;
-    }
-    __syncthreads();
-
-#pragma unroll
-    for (int i = 0; i < NG; ++i)
-      if (g0 + GS * i < G) acc[i] *= alpha_s[g0 + GS * i];
-    const int kn = min(kChunk, n_keys - c0);
-    const TKV* vr = vb + (long long)c0 * kv_row + d;
-#pragma unroll 4
-    for (int c = 0; c < kn; ++c) {
-      const float vx = to_f32(vr[c * kv_row]);
-#pragma unroll
-      for (int i = 0; i < NG; ++i)
-        if (g0 + GS * i < G)
-          acc[i] = fmaf(s_s[g0 + GS * i][c], vx, acc[i]);
-    }
   }
 
-  if (lane == 0) {
+  __syncthreads();  // every warp is done with q in buf
+  if (active) {
 #pragma unroll
-    for (int r = 0; r < 2; ++r)
-      if (warp + 8 * r < G) l_s[warp + 8 * r] = l_w[r];
+    for (int gi = 0; gi < GW; ++gi) {
+      if (gi >= gc) break;
+      const int g = g0 + gi;
+      float* dst = buf + (ks * G + g) * HD + lane * E;
+      if constexpr (E >= 4) {
+#pragma unroll
+        for (int e = 0; e < E; e += 4)
+          store4(dst + e, make_float4(acc[gi][e], acc[gi][e + 1],
+                                      acc[gi][e + 2], acc[gi][e + 3]));
+      } else {
+#pragma unroll
+        for (int e = 0; e < E; ++e) dst[e] = acc[gi][e];
+      }
+      if (lane == 0) {
+        m_s[ks][g] = m[gi];
+        l_s[ks][g] = l[gi];
+      }
+    }
   }
   __syncthreads();
-#pragma unroll
-  for (int i = 0; i < NG; ++i) {
-    const int g = g0 + GS * i;
-    if (g < G) store1(o + q_off + (long long)g * HD + d,
-                      acc[i] / fmaxf(l_s[g], 1e-30f));
+
+  // merge the key slots of each head: slot 0 saw key lo, so mx is finite,
+  // and a slot that saw no key weighs e^-inf = 0
+  const int n_slots = kWarps / ((G + GW - 1) / GW);
+  for (int i = tid; i < G * HD; i += kThreads) {
+    const int g = i / HD;
+    float mx = -INFINITY;
+    for (int j = 0; j < n_slots; ++j) mx = fmaxf(mx, m_s[j][g]);
+    float num = 0.f, den = 0.f;
+    for (int j = 0; j < n_slots; ++j) {
+      const float w = expf(m_s[j][g] - mx);
+      num = fmaf(w, buf[(j * G + g) * HD + i % HD], num);
+      den = fmaf(w, l_s[j][g], den);
+    }
+    if (n_split == 1) {
+      store1(o + q_off + i, num / fmaxf(den, 1e-30f));
+    } else {
+      ws[part * G * HD + i] = num;
+      if (i % HD == 0) {
+        ws_ml[(part * G + g) * 2] = mx;
+        ws_ml[(part * G + g) * 2 + 1] = den;
+      }
+    }
   }
+}
+
+// One block of HD threads per (query head, batch row): merges the n_split
+// partials of decode_split_kernel into o, skipping empty splits (l = 0,
+// their acc never written).  The splits' (m, l) pairs come to shared
+// memory in one sweep; the acc loads of the split loop do not depend on
+// one another, so they are in flight together.
+template <typename TQ, int HD>
+__global__ void __launch_bounds__(HD)
+decode_combine_kernel(const float* __restrict__ ws, TQ* __restrict__ o,
+                      int H, int KV, int n_split) {
+  extern __shared__ float ml_s[];  // [n_split][2]
+  const int h = blockIdx.x, b = blockIdx.y, d = threadIdx.x;
+  const int G = H / KV, kvh = h / G, g = h % G;
+  const long long first = ((long long)b * KV + kvh) * n_split * G + g;
+  const float* acc = ws + first * HD + d;  // split j at + j·G·HD
+  const float* ml = ws + (long long)gridDim.y * KV * n_split * G * HD +
+                    first * 2;               // split j at + j·G·2
+  for (int j = d; j < n_split; j += HD) {
+    ml_s[2 * j] = ml[(long long)j * G * 2];
+    ml_s[2 * j + 1] = ml[(long long)j * G * 2 + 1];
+  }
+  __syncthreads();
+  float mx = -INFINITY;
+  for (int j = 0; j < n_split; ++j)
+    if (ml_s[2 * j + 1] > 0.f) mx = fmaxf(mx, ml_s[2 * j]);
+  float num = 0.f, den = 0.f;
+#pragma unroll 8
+  for (int j = 0; j < n_split; ++j) {
+    const float a = acc[(long long)j * G * HD];
+    const float lj = ml_s[2 * j + 1];
+    const float w = lj > 0.f ? expf(ml_s[2 * j] - mx) : 0.f;
+    num += lj > 0.f ? w * a : 0.f;  // an empty split's acc is junk
+    den += w * lj;
+  }
+  store1(o + ((long long)b * H + h) * HD + d, num / fmaxf(den, 1e-30f));
 }
 
 template <typename TQ, typename TKV, int HD>
 int launch(const void* q, const void* k, const void* v, void* o, int B,
            int Sq, int Sk, int H, int KV, int q_offset, int k_len,
-           int window, int causal, float scale, float cap,
-           cudaStream_t stream) {
+           int window, int causal, float scale, float cap, void* ws,
+           int n_split, int split_len, cudaStream_t stream) {
   if (Sq == 1) {
-    // the decode form gives each thread one of hd columns: hd divides 256
-    if constexpr (kThreads % HD != 0) {
+    // the decode form splits a row over a warp's 32 lanes: hd % 32 == 0
+    if constexpr (HD % 32 != 0) {
       return (int)cudaErrorInvalidValue;
     } else {
-      if (H / KV > kMaxGroups || !causal) return (int)cudaErrorInvalidValue;
       const int n_keys = min(k_len, q_offset + 1);
       const int k_first = window > 0 ? max(0, q_offset + 1 - window) : 0;
-      decode_kernel<TQ, TKV, HD><<<dim3(KV, B), kThreads, 0, stream>>>(
-          (const TQ*)q, (const TKV*)k, (const TKV*)v, (TQ*)o, Sk, H, KV,
-          k_first, n_keys, scale, cap);
+      if (H / KV > kMaxGroups || !causal || n_split < 1 || split_len < 1 ||
+          (long long)n_split * split_len < n_keys - k_first ||
+          (n_split > 1 && ws == nullptr))
+        return (int)cudaErrorInvalidValue;
+      decode_split_kernel<TQ, TKV, HD>
+          <<<dim3(n_split, KV, B), kThreads, 0, stream>>>(
+              (const TQ*)q, (const TKV*)k, (const TKV*)v, (TQ*)o,
+              (float*)ws, Sk, H, KV, k_first, n_keys, split_len, scale, cap);
+      if (n_split > 1) {
+        const cudaError_t err = cudaGetLastError();
+        if (err != cudaSuccess) return (int)err;
+        decode_combine_kernel<TQ, HD>
+            <<<dim3(H, B), HD, 2 * n_split * sizeof(float), stream>>>(
+                (const float*)ws, (TQ*)o, H, KV, n_split);
+      }
     }
   } else {
     // the prefill form takes one dtype: no served path mixes them there
@@ -496,24 +739,29 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
 template <typename TQ, typename TKV>
 int launch_hd(int hd, const void* q, const void* k, const void* v, void* o,
               int B, int Sq, int Sk, int H, int KV, int q_offset, int k_len,
-              int window, int causal, float scale, float cap,
-              cudaStream_t stream) {
+              int window, int causal, float scale, float cap, void* ws,
+              int n_split, int split_len, cudaStream_t stream) {
   switch (hd) {
     case 32:
       return launch<TQ, TKV, 32>(q, k, v, o, B, Sq, Sk, H, KV, q_offset,
-                                 k_len, window, causal, scale, cap, stream);
+                                 k_len, window, causal, scale, cap, ws,
+                                 n_split, split_len, stream);
     case 64:
       return launch<TQ, TKV, 64>(q, k, v, o, B, Sq, Sk, H, KV, q_offset,
-                                 k_len, window, causal, scale, cap, stream);
+                                 k_len, window, causal, scale, cap, ws,
+                                 n_split, split_len, stream);
     case 80:
       return launch<TQ, TKV, 80>(q, k, v, o, B, Sq, Sk, H, KV, q_offset,
-                                 k_len, window, causal, scale, cap, stream);
+                                 k_len, window, causal, scale, cap, ws,
+                                 n_split, split_len, stream);
     case 128:
       return launch<TQ, TKV, 128>(q, k, v, o, B, Sq, Sk, H, KV, q_offset,
-                                  k_len, window, causal, scale, cap, stream);
+                                  k_len, window, causal, scale, cap, ws,
+                                  n_split, split_len, stream);
     case 256:
       return launch<TQ, TKV, 256>(q, k, v, o, B, Sq, Sk, H, KV, q_offset,
-                                  k_len, window, causal, scale, cap, stream);
+                                  k_len, window, causal, scale, cap, ws,
+                                  n_split, split_len, stream);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -525,16 +773,20 @@ int launch_hd(int hd, const void* q, const void* k, const void* v, void* o,
 // differ only in the decode form, and then as an f32 q over a bf16 cache.
 // logit_cap: the soft-cap, 0 for none.  Sq 1 runs the decode form, which
 // takes causal only, no hd 80 and, with a window, the query at the cache's
-// last valid position (q_offset k_len - 1); longer queries the prefill form,
-// which takes q_offset 0 and k_len Sk only (window 0: no window).  causal 0
-// (the prefill form's non-causal function) takes no window and neither
-// Sq 1 nor (q_offset, k_len) other than (0, Sk).
+// last valid position (q_offset k_len - 1); its keys go in n_split splits
+// of split_len from the first key it sees (n_split·split_len must cover
+// them), and with n_split > 1 ws is an f32 workspace of
+// B·KV·n_split·(H/KV)·(hd + 2) floats.  Longer queries run the prefill form, which takes q_offset 0 and
+// k_len Sk only (window 0: no window) and ignores ws, n_split and
+// split_len.  causal 0 (the prefill form's non-causal function) takes no
+// window and neither Sq 1 nor (q_offset, k_len) other than (0, Sk).
 // Returns cudaGetLastError(), or cudaErrorInvalidValue for what it refuses.
 extern "C" int flash_attention(const void* q, const void* k, const void* v,
                                void* o, int B, int Sq, int Sk, int H, int KV,
                                int hd, int q_offset, int k_len, int window,
                                int causal, float scale, float logit_cap,
-                               int q_bf16, int kv_bf16, void* stream) {
+                               int q_bf16, int kv_bf16, void* ws,
+                               int n_split, int split_len, void* stream) {
   if (B <= 0 || Sq <= 0 || KV <= 0 || H % KV != 0 || k_len < 1 ||
       k_len > Sk || q_offset < 0 || window < 0 || !(logit_cap >= 0.f) ||
       (Sq > 1 && (q_offset != 0 || k_len != Sk || q_bf16 != kv_bf16)) ||
@@ -546,11 +798,12 @@ extern "C" int flash_attention(const void* q, const void* k, const void* v,
   if (q_bf16)
     return launch_hd<__nv_bfloat16, __nv_bfloat16>(
         hd, q, k, v, o, B, Sq, Sk, H, KV, q_offset, k_len, window, causal,
-        scale, logit_cap, st);
+        scale, logit_cap, ws, n_split, split_len, st);
   if (kv_bf16)
     return launch_hd<float, __nv_bfloat16>(
         hd, q, k, v, o, B, Sq, Sk, H, KV, q_offset, k_len, window, causal,
-        scale, logit_cap, st);
+        scale, logit_cap, ws, n_split, split_len, st);
   return launch_hd<float, float>(hd, q, k, v, o, B, Sq, Sk, H, KV, q_offset,
-                                 k_len, window, causal, scale, logit_cap, st);
+                                 k_len, window, causal, scale, logit_cap, ws,
+                                 n_split, split_len, st);
 }

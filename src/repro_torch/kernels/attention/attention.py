@@ -31,15 +31,21 @@ built for that prefill form only.
 
 The wrapper takes CUDA tensors only, checks them, allocates the output
 with ``torch.empty``, launches on the current stream and raises if the
-launch was refused.  Each launch counts in ``build.LAUNCHES`` under the
-key of its form (``launch_key``).  The plain version is in ``ref.py``;
-``ops.py`` picks by device.
+launch was refused.  The decode form runs split-KV: ``decode_splits`` cuts
+the keys a query sees into splits from the cache's shape, the window and
+the card's SM count alone, so every step over one cache launches the same
+grid; the splits' float32 workspace is kept from call to call
+(``_workspace``), and the C side launches a split kernel and, with more
+than one split, a combine kernel.  Each wrapper call counts once in
+``build.LAUNCHES`` under the key of its form (``launch_key``).  The plain
+version is in ``ref.py``; ``ops.py`` picks by device.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+import threading
 
 import torch
 
@@ -49,8 +55,8 @@ from ..build import LAUNCHES, LIBRARIES, check_launch
 #: smollm / qwen1.5 64, hubert 80, starcoder2 128, recurrentgemma and
 #: gemma2 256)
 HEAD_DIMS = (32, 64, 80, 128, 256)
-#: head dims of the decode form (Sq = 1), where a thread takes one of hd
-#: columns of a 256-thread block: hd divides 256
+#: head dims of the decode form (Sq = 1), whose warps split a row of hd
+#: values over their 32 lanes: hd a multiple of 32
 DECODE_HEAD_DIMS = (32, 64, 128, 256)
 #: the launch counters (``build.LAUNCHES``) of the non-causal form and of
 #: the causal capped forms (gemma2's, without and with a window), apart
@@ -61,7 +67,89 @@ CAPPED = "flash_attention (capped)"
 CAPPED_WINDOWED = "flash_attention (capped, windowed)"
 #: query heads per KV head that the decode form (Sq = 1) serves in one block
 MAX_DECODE_GROUPS = 16
+#: the fewest keys a split of the decode form takes, and the blocks an SM
+#: its split plan aims for
+MIN_SPLIT_LEN = 64
+SPLIT_BLOCKS_PER_SM = 2
 _TYPES = (torch.float32, torch.bfloat16)
+
+
+@functools.cache
+def decode_splits(bsz: int, sk: int, kvh: int, window: int,
+                  n_sm: int) -> tuple:
+    """The decode form's split plan over a cache of ``bsz`` rows, ``sk``
+    positions and ``kvh`` KV heads under ``window`` (0: none) on a card of
+    ``n_sm`` SMs: returns ``(n_split, split_len)``, split j taking keys
+    ``k_first + j·split_len`` onwards, so that the splits cover the most
+    keys a query sees, ``min(sk, window)`` or ``sk``, from the first one.
+    It depends on the cache's shape and the window alone, never on the
+    valid length, so every decode step over one cache launches the same
+    grid of ``n_split·kvh·bsz`` blocks: ``SPLIT_BLOCKS_PER_SM·n_sm`` of
+    them (two an SM, the most that are resident at once; one more row of
+    splits where ``bsz·kvh`` does not divide that), or, where that would
+    make splits shorter than ``MIN_SPLIT_LEN`` keys, splits of that
+    length; one split when the batch fills that many blocks alone.
+    Cached: the wrapper asks for it at every call."""
+    span = min(sk, window) if window else sk
+    want = -(-SPLIT_BLOCKS_PER_SM * n_sm // (bsz * kvh))
+    split_len = -(-span // want)
+    if split_len < MIN_SPLIT_LEN:
+        return -(-span // MIN_SPLIT_LEN), MIN_SPLIT_LEN
+    return want, split_len
+
+
+def decode_split_keys(plan: tuple, q_offset: int, k_len: int,
+                      window: int) -> list:
+    """The keys ``[lo, hi)`` of each split of ``plan`` (``decode_splits``)
+    that holds keys the query at ``q_offset`` sees over ``k_len`` valid
+    keys under ``window``: those of ``[k_first, n_keys)``, with ``n_keys =
+    min(k_len, q_offset + 1)`` and ``k_first = max(0, q_offset + 1 -
+    window)`` under a window, else 0.  Split j takes them from ``k_first +
+    j·split_len``, as the kernel does, so a window's splits start at its
+    first key."""
+    n_split, split_len = plan
+    n_keys = min(k_len, q_offset + 1)
+    k_first = max(0, q_offset + 1 - window) if window else 0
+    bounds = [(k_first + j * split_len,
+               min(n_keys, k_first + (j + 1) * split_len))
+              for j in range(n_split)]
+    return [(lo, hi) for lo, hi in bounds if lo < hi]
+
+
+def decode_plan(k: torch.Tensor, q_offset: int, k_len: int,
+                window: int) -> tuple:
+    """The split plan the wrapper launches over the cache ``k`` (B, Sk,
+    KV, hd) on its card, and the keys of each split that holds keys of
+    this query: ``((n_split, split_len), [(lo, hi), ...])``."""
+    plan = decode_splits(k.shape[0], k.shape[1], k.shape[2], window,
+                         sm_count(k.device.index))
+    return plan, decode_split_keys(plan, q_offset, k_len, window)
+
+
+#: the decode form's float32 workspaces, one a (device, stream, thread),
+#: grown as needed (``_workspace``)
+_WORKSPACES: dict = {}
+
+
+def _workspace(n: int, device: torch.device, stream: int) -> torch.Tensor:
+    """A float32 workspace of at least ``n`` floats on ``device``, kept
+    for the calls of this thread on ``stream``: they reach the card in
+    the stream's order, so one call's split kernel never writes it while
+    the combine of another still reads it, and the host spends no
+    allocation a call.  A workspace replaced by a larger one goes back to
+    the caching allocator on the stream it was taken on."""
+    key = (device.index, stream, threading.get_ident())
+    ws = _WORKSPACES.get(key)
+    if ws is None or ws.numel() < n:
+        ws = _WORKSPACES[key] = torch.empty(n, dtype=torch.float32,
+                                            device=device)
+    return ws
+
+
+@functools.cache
+def sm_count(index: int) -> int:
+    """The SM count of CUDA device ``index``."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def cache_dtypes(q_dtype) -> tuple:
@@ -84,11 +172,18 @@ def launch_key(causal: bool = True, window: int = 0,
     return "flash_attention"
 
 
+_PTR, _I32, _F32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+#: the C entry's arguments: q, k, v, o; B, Sq, Sk, H, KV, hd, q_offset,
+#: k_len, window, causal; scale, logit_cap; q_bf16, kv_bf16; the decode
+#: form's workspace, n_split and split_len; the stream
+_ARGTYPES = ([_PTR] * 4 + [_I32] * 10 + [_F32, _F32, _I32, _I32]
+             + [_PTR, _I32, _I32, _PTR])
+
+
 @functools.cache
 def _kernel():
     fn = LIBRARIES.get("attention").flash_attention
-    ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    fn.argtypes = [ptr] * 4 + [i32] * 10 + [f32, f32, i32, i32, ptr]
+    fn.argtypes = _ARGTYPES
     fn.restype = ctypes.c_int
     return fn
 
@@ -117,7 +212,14 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     when ``logit_cap`` > 0.  With Sq > 1, ``q_offset`` must be 0 and
     ``k_len`` Sk; with Sq = 1, hd one of ``DECODE_HEAD_DIMS`` and, with a
     window, ``q_offset = k_len - 1``.  Not ``causal``: Sq > 1 and no
-    window.  Returns (B, Sq, H, hd) in q's dtype."""
+    window.  Returns (B, Sq, H, hd) in q's dtype.
+
+    Sq > 1 launches one kernel; Sq = 1 launches the split kernel over
+    ``decode_splits(B, Sk, KV, window, SMs)`` and, with more than one
+    split, the combine kernel, over a float32 workspace of
+    ``B·KV·n_split·(H/KV)·(hd + 2)`` floats kept for this thread and
+    stream (``_workspace``).  One count in ``build.LAUNCHES`` a call
+    either way."""
     if q.dim() != 4 or k.dim() != 4:
         raise ValueError("flash_attention takes (B, S, heads, hd) inputs")
     bsz, sq, h, hd = q.shape
@@ -167,12 +269,21 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _check(k, "k", (bsz, sk, kvh, hd), k.dtype)
     _check(v, "v", (bsz, sk, kvh, hd), k.dtype)
     out = torch.empty_like(q)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    n_split = split_len = 0
+    ws = None
+    if sq == 1:
+        n_split, split_len = decode_splits(bsz, sk, kvh, window,
+                                           sm_count(q.device.index))
+        if n_split > 1:
+            ws = _workspace(bsz * kvh * n_split * (h // kvh) * (hd + 2),
+                            q.device, stream)
     rc = _kernel()(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), bsz, sq,
         sk, h, kvh, hd, q_offset, k_len, window, int(bool(causal)),
         hd ** -0.5, logit_cap, int(q.dtype == torch.bfloat16),
-        int(k.dtype == torch.bfloat16),
-        torch.cuda.current_stream(q.device).cuda_stream)
+        int(k.dtype == torch.bfloat16), None if ws is None else ws.data_ptr(),
+        n_split, split_len, stream)
     check_launch("flash_attention", rc)
     LAUNCHES.add(launch_key(causal, window, logit_cap))
     return out

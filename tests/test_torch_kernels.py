@@ -8,15 +8,17 @@ receive (the wrappers refuse CPU tensors, ``ops`` routes them to the plain
 versions, K2's banded taps reproduce the dense weights, K5's and K6's
 plain scans carry their state across a split, K4's decode form is a row
 of its prefill form, capped and windowed too, its window keeps each row's
-last keys and its non-causal form, mixed dtypes and a misplaced decode
-window are refused where no path takes them); the tests marked ``cuda``
-launch the kernels (and run the operators, the reduced Falcon-Mamba, a
-reduced StarCoder2, a reduced RecurrentGemma, a reduced HuBERT and a
-reduced Gemma2 on the card) and skip without a card:
+last keys, its non-causal form, mixed dtypes and a misplaced decode
+window are refused where no path takes them, and its decode form's split
+plan covers every key once with the same grid at every length); the
+tests marked ``cuda`` launch the kernels (and run the operators, the
+reduced Falcon-Mamba, a reduced StarCoder2, a reduced RecurrentGemma, a
+reduced HuBERT and a reduced Gemma2 on the card) and skip without a card:
 ``PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_kernels.py``.
 """
 
 import math
+import threading
 
 import numpy as np
 import pytest
@@ -333,6 +335,117 @@ def test_attention_hold_passes_rounding_and_fails_a_wrong_key_tile(dtype):
         assert float((bad - want).abs().max()) < \
             0.5 * float(want.abs().max())
         assert hold_ratio(bad, want) > 1, window
+
+
+#: cache shapes (B, Sk, KV) and SM counts for the decode form's split plan:
+#: Gemma2-2B's, StarCoder2-3B's and RecurrentGemma-9B's cells on an H100
+#: (132 SMs) and a PCIe H100 (114), the CPU tests' own small caches, a
+#: batch that fills the card alone, a long cache on few rows
+SPLIT_CACHES = [(2, 8192, 4, 132), (4, 2080, 2, 132), (2, 2048, 1, 132),
+                (2, 8192, 4, 114), (3, 720, 2, 132), (2, 3000, 4, 132),
+                (1, 1, 1, 132), (1, 63, 2, 132), (64, 100, 8, 132),
+                (1, 100000, 1, 132), (2, 9000, 1, 132), (2, 5, 2, 1),
+                (7, 4099, 3, 16)]
+
+
+@pytest.mark.parametrize("bsz,sk,kvh,n_sm", SPLIT_CACHES)
+def test_decode_splits_cover_each_live_key_once(bsz, sk, kvh, n_sm):
+    """The decode form's split plan, for each window over a cache (none,
+    shorter than the cache, longer): splits of at least ``MIN_SPLIT_LEN``
+    keys; two blocks an SM where splits of that length allow as many,
+    never a full row of splits more, one split when the batch fills that
+    many blocks alone; and, from the window's first key, every key the
+    query sees falls in exactly one split, at every length of the cache
+    (the plan never sees it)."""
+    for window in (0, 1, 64, 1000, sk + 5):
+        span = min(sk, window) if window else sk
+        n_split, split_len = K4.decode_splits(bsz, sk, kvh, window, n_sm)
+        assert split_len >= K4.MIN_SPLIT_LEN
+        assert n_split * split_len >= span
+        blocks, aim = n_split * bsz * kvh, K4.SPLIT_BLOCKS_PER_SM * n_sm
+        shortest = -(-span // K4.MIN_SPLIT_LEN)  # splits of 64 keys
+        assert blocks >= aim or n_split == shortest
+        assert blocks < aim + bsz * kvh
+        if bsz * kvh >= aim:
+            assert n_split == 1
+        lengths = {1, 2, split_len - 1, split_len, split_len + 1, sk // 2,
+                   sk - 1, sk}
+        for length in sorted(lengths & set(range(1, sk + 1))):
+            k_first = max(0, length - window) if window else 0
+            owner = np.zeros(sk, dtype=int)
+            for lo, hi in K4.decode_split_keys((n_split, split_len),
+                                               length - 1, length, window):
+                owner[lo:hi] += 1
+            assert (owner[k_first:length] == 1).all()
+            assert not owner[:k_first].any() and not owner[length:].any()
+
+
+@pytest.mark.parametrize("bsz,sk,kvh,h,hd", [(2, 8192, 4, 8, 256),
+                                             (4, 2080, 2, 24, 128),
+                                             (2, 2048, 1, 16, 256),
+                                             (1, 40, 2, 4, 32)])
+def test_decode_wrapper_launches_one_grid_per_cache(monkeypatch, bsz, sk,
+                                                     kvh, h, hd):
+    """What K4's wrapper hands the C entry in the decode form, seen through
+    a stand-in for the library (the card's own launch is a ``cuda`` test):
+    the same split plan and the same float32 workspace of at least
+    B·KV·n_split·G·(hd + 2) floats at every length of one cache and window
+    (a capturable decode step), the plan being ``decode_splits`` of the
+    cache's shape and the window, the workspace taken at most once and
+    kept for the stream (another stream gets its own); every argument the
+    ABI lists; no workspace with one split; one count a call in
+    ``build.LAUNCHES``, under its form's key."""
+    seen = []
+
+    def entry(*args):
+        assert len(args) == len(K4._ARGTYPES)
+        seen.append(args)
+        return 0
+
+    monkeypatch.setattr(K4, "_kernel", lambda: entry)
+    monkeypatch.setattr(K4, "_check", lambda *a: None)
+    monkeypatch.setattr(K4, "sm_count", lambda index: 132)
+    monkeypatch.setattr(K4, "_WORKSPACES", {})
+    stream = {"cuda_stream": 0}
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device=None: type("S", (), dict(stream)))
+    workspaces, empty = [], torch.empty
+
+    def recorded_empty(*shape, **kw):
+        workspaces.append((shape, kw.get("dtype")))
+        return empty(*shape, **kw)
+
+    monkeypatch.setattr(torch, "empty", recorded_empty)
+    q = torch.zeros((bsz, 1, h, hd))
+    k = v = torch.zeros((bsz, sk, kvh, hd), dtype=torch.bfloat16)
+    lengths = sorted({1, 2, min(sk, 65), sk // 2, sk - 1, sk})
+    for window, cap in ((0, 0.0), (min(sk, 64), 50.0), (sk // 3, 50.0)):
+        n_split, split_len = K4.decode_splits(bsz, sk, kvh, window, 132)
+        seen.clear()
+        workspaces.clear()
+        LAUNCHES.reset()
+        for length in lengths:
+            K4.flash_attention(q, k, v, length - 1, length, window,
+                               logit_cap=cap)
+        assert LAUNCHES.snapshot() == {
+            K4.launch_key(True, window, cap): len(lengths)}
+        assert {args[-3:-1] for args in seen} == {(n_split, split_len)}
+        want = bsz * kvh * n_split * (h // kvh) * (hd + 2)
+        ptrs = {args[-4] for args in seen}
+        if n_split == 1:
+            assert ptrs == {None} and workspaces == []
+        else:
+            kept = K4._WORKSPACES[None, 0, threading.get_ident()]
+            assert ptrs == {kept.data_ptr()} and kept.numel() >= want
+            assert workspaces in ([], [((want,), torch.float32)])
+    if len(K4._WORKSPACES) == 1:
+        stream["cuda_stream"] = 1
+        K4.flash_attention(q, k, v, sk - 1, sk)
+        assert seen[-1][-4] == K4._WORKSPACES[
+            None, 1, threading.get_ident()].data_ptr() != kept.data_ptr()
+    K4.flash_attention(q.expand(bsz, 3, h, hd).contiguous(), k.float(),
+                       v.float())
+    assert seen[-1][-4:-1] == (None, 0, 0)  # the prefill form: no plan
 
 
 def test_rglru_scan_wrapper_refuses_cpu_and_ops_routes_to_plain():
@@ -733,9 +846,10 @@ def test_flash_attention_c_entry_refuses_noncausal_forms_no_path_takes(cuda):
     out = torch.zeros_like(q)
 
     def call(sq, q_offset, k_len, window, causal):
+        # one split of 8 keys: a plan that covers the decode form's keys
         return fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                   1, sq, 8, 2, 2, 80, q_offset, k_len, window, causal,
-                  80 ** -0.5, 0.0, 0, 0, stream)
+                  80 ** -0.5, 0.0, 0, 0, None, 1, 8, stream)
 
     assert call(1, 7, 8, 0, 0) == 1
     assert call(8, 0, 8, 4, 0) == 1
@@ -896,10 +1010,11 @@ def test_flash_attention_c_entry_refuses_mixed_and_misplaced_forms(cuda):
     out = torch.zeros_like(q)
 
     def call(sq, q_offset, k_len, window, cap, q_bf16, kv_bf16):
+        # one split of 8 keys: a plan that covers the decode form's keys
         kk, vv = (kb, vb) if kv_bf16 else (k, v)
         return fn(q.data_ptr(), kk.data_ptr(), vv.data_ptr(), out.data_ptr(),
                   1, sq, 8, 2, 2, 32, q_offset, k_len, window, 1,
-                  32 ** -0.5, cap, q_bf16, kv_bf16, stream)
+                  32 ** -0.5, cap, q_bf16, kv_bf16, None, 1, 8, stream)
 
     assert call(8, 0, 8, 0, 0.0, 0, 1) == 1
     assert call(1, 7, 8, 0, 0.0, 1, 0) == 1
@@ -944,3 +1059,171 @@ def test_reduced_gemma2_on_card_matches_plain_path(cuda):
     ref = prefill(model_cpu, cfg, {"tokens": prompts}, 48, torch.bfloat16)[0]
     assert float((got.cpu() - ref).abs().max()) <= \
         1e-4 * float(ref.abs().max())
+
+
+#: the decode form's (q, k/v) dtype pairs
+DECODE_PAIRS = [(torch.bfloat16, torch.bfloat16),
+                (torch.float32, torch.float32),
+                (torch.float32, torch.bfloat16)]
+
+
+def _card_splits(bsz, sk, kvh, window=0):
+    """The split plan K4's wrapper launches on this card."""
+    return K4.decode_splits(bsz, sk, kvh, window,
+                            K4.sm_count(torch.cuda.current_device()))
+
+
+def _assert_split_mutants_fail(q, k, v, q_offset, k_len, window, cap, want):
+    """Where the keys seen span two splits or more of K4's plan on this
+    card, the plain version with the middle live split's values zeroed,
+    and the plain version over the keys before the last live split's
+    start, each fail ``ref.HOLD`` against ``want``: the hold sees a split
+    dropped or cut short."""
+    _, live = K4.decode_plan(k, q_offset, k_len, window)
+    if len(live) < 2:
+        return
+    lo, hi = live[(len(live) - 1) // 2]
+    v_bad = v.clone()
+    v_bad[:, lo:hi] = 0
+    assert hold_ratio(attention_ref(q, k, v_bad, q_offset, k_len, window,
+                                    logit_cap=cap), want) > 1, "split drop"
+    assert hold_ratio(attention_ref(q, k, v, q_offset, live[-1][0], window,
+                                    logit_cap=cap), want) > 1, "cut"
+
+
+def _split_inputs(bsz, sk, h, kvh, hd, pair, seed, length, device, cap=0.0,
+                  window=0):
+    """q, k, v from a seed on ``device`` with the last key (position
+    ``length - 1``) and the first key of the middle live split of K4's
+    plan on that card scoring 2·c for the lead query head of each group
+    (``scores_over_cap``; c = ``cap``, or 4 with no cap, over keys 30
+    times larger when capped), so that each carries a share of every such
+    row's output that a dropped split or a cut plan would lose; then q and
+    k/v rounded to ``pair``."""
+    q, k, v = _attn_inputs(bsz, 1, sk, h, kvh, hd, torch.float32, seed,
+                           device)
+    c = cap or 4.0
+    k = scores_over_cap(q, 30 * k if cap else k, c, length - 1)
+    _, live = K4.decode_plan(k, length - 1, length, window)
+    if len(live) > 1:
+        k = scores_over_cap(q, k, c, live[(len(live) - 1) // 2][0])
+    return q.to(pair[0]), k.to(pair[1]), v.to(pair[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd", [32, 64, 128, 256])
+@pytest.mark.parametrize("groups", [1, 2, 12, 16])
+@pytest.mark.parametrize("pair", DECODE_PAIRS, ids=["bf16", "f32", "f32-bf16"])
+@pytest.mark.parametrize("where", ["one key", "split - 1", "split",
+                                   "split + 1", "last split of one key"])
+def test_flash_attention_split_decode_matches_plain_on_card(cuda, hd, groups,
+                                                            pair, where):
+    """K4's split-KV decode form at lengths taken from its own split plan
+    over a (2, 3000, 4 KV heads) cache -- one key, a split less one, one
+    split, one key past it, and a last split of one key -- at 1, 2, 12
+    and 16 query heads per KV head, every decode head dim and dtype pair,
+    against its plain version element by element within ``ref.HOLD``; one
+    count in ``build.LAUNCHES``; a dropped or cut split fails the hold."""
+    bsz, sk, kvh = 2, 3000, 4
+    n_split, split_len = _card_splits(bsz, sk, kvh)
+    assert n_split > 1
+    length = {"one key": 1, "split - 1": split_len - 1, "split": split_len,
+              "split + 1": split_len + 1,
+              "last split of one key": (n_split - 1) * split_len + 1}[where]
+    q, k, v = _split_inputs(bsz, sk, groups * kvh, kvh, hd, pair,
+                            hd + groups + length, length, cuda)
+    LAUNCHES.reset()
+    got = K4.flash_attention(q, k, v, length - 1, length)
+    torch.cuda.synchronize()
+    assert LAUNCHES.snapshot() == {"flash_attention": 1}
+    want = attention_ref(q, k, v, length - 1, length)
+    assert got.dtype == pair[0] and hold_ratio(got, want) <= 1
+    _assert_split_mutants_fail(q, k, v, length - 1, length, 0, 0.0, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("window", [0, 4096])
+@pytest.mark.parametrize("pair", DECODE_PAIRS, ids=["bf16", "f32", "f32-bf16"])
+def test_flash_attention_gemma2_decode_matches_plain_on_card(cuda, window,
+                                                             pair):
+    """Gemma2-2B's decode at its full shape: one query of 8 heads over 4 KV
+    heads of 256 against an 8,192-position cache at length 8,161, soft-cap
+    50 with scores over the cap by construction, with and without the
+    local layers' window of 4,096, held element by element within
+    ``ref.HOLD``; the plain version without the cap fails it, and so do a
+    dropped and a cut split."""
+    bsz, sk, h, kvh, hd, length, cap = 2, 8192, 8, 4, 256, 8161, 50.0
+    q, k, v = _split_inputs(bsz, sk, h, kvh, hd, pair, 23 + window, length,
+                            cuda, cap, window)
+    LAUNCHES.reset()
+    got = K4.flash_attention(q, k, v, length - 1, length, window,
+                             logit_cap=cap)
+    torch.cuda.synchronize()
+    assert LAUNCHES.snapshot() == {K4.launch_key(True, window, cap): 1}
+    want = attention_ref(q, k, v, length - 1, length, window, logit_cap=cap)
+    assert got.dtype == pair[0] and hold_ratio(got, want) <= 1
+    assert hold_ratio(attention_ref(q, k, v, length - 1, length, window),
+                      want) > 1
+    _assert_split_mutants_fail(q, k, v, length - 1, length, window, cap, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["one key of 8192", "window past the keys",
+                                  "window from inside a cache split"])
+@pytest.mark.parametrize("pair", DECODE_PAIRS, ids=["bf16", "f32", "f32-bf16"])
+def test_flash_attention_decode_with_empty_splits_on_card(cuda, case, pair):
+    """Splits left empty, and windows off the cache's own split grid: one
+    valid key of an 8,192-position cache (every split but the first holds
+    none); a window of 4,096 over 1,000 valid keys (the splits past them
+    hold none); and a window whose first key lies inside a split of the
+    cache's grid (the splits start from it); within ``ref.HOLD``, the
+    plain version without the window failing it, and a dropped or cut
+    split too."""
+    bsz, sk, h, kvh, hd = 2, 8192, 8, 4, 256
+    n_split, split_len = _card_splits(bsz, sk, kvh)
+    length, window = {
+        "one key of 8192": (1, 0),
+        "window past the keys": (1000, 4096),
+        "window from inside a cache split": (
+            sk - split_len // 3,
+            sk - split_len // 3 - (n_split // 2 * split_len + split_len // 2)),
+    }[case]
+    q, k, v = _split_inputs(bsz, sk, h, kvh, hd, pair, 5 + length, length,
+                            cuda, window=window)
+    got = K4.flash_attention(q, k, v, length - 1, length, window)
+    want = attention_ref(q, k, v, length - 1, length, window)
+    assert got.dtype == pair[0] and hold_ratio(got, want) <= 1
+    if length > window > 0:
+        assert hold_ratio(attention_ref(q, k, v, length - 1, length),
+                          want) > 1
+    _assert_split_mutants_fail(q, k, v, length - 1, length, window, 0.0,
+                               want)
+
+
+@pytest.mark.cuda
+def test_flash_attention_c_entry_refuses_split_plans_that_miss_keys(cuda):
+    """The C entry returns cudaErrorInvalidValue (1) and launches nothing
+    for a decode split plan that does not cover the valid keys, has no
+    split or no key a split, or has several splits and no workspace; with
+    two splits of 4 keys over a workspace it takes the call."""
+    fn = K4._kernel()
+    stream = torch.cuda.current_stream(cuda).cuda_stream
+    q, k, v = _attn_inputs(1, 1, 8, 4, 2, 64, device=cuda)
+    ws = torch.empty(1 * 2 * 2 * 2 * (64 + 2), device=cuda)
+    out = torch.zeros_like(q)
+
+    def call(ws_ptr, n_split, split_len):
+        return fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                  1, 1, 8, 4, 2, 64, 7, 8, 0, 1, 64 ** -0.5, 0.0, 0, 0,
+                  ws_ptr, n_split, split_len, stream)
+
+    assert call(ws.data_ptr(), 1, 7) == 1   # key 7 in no split
+    assert call(ws.data_ptr(), 2, 3) == 1   # keys 6, 7 in none
+    assert call(ws.data_ptr(), 0, 8) == 1
+    assert call(ws.data_ptr(), 1, 0) == 1
+    assert call(None, 2, 4) == 1
+    torch.cuda.synchronize()
+    assert not out.any()
+    assert call(ws.data_ptr(), 2, 4) == 0
+    torch.cuda.synchronize()
+    assert hold_ratio(out, attention_ref(q, k, v, 7, 8)) <= 1
