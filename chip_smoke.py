@@ -159,6 +159,15 @@ keys, or ``flex_attention`` with the soft-cap as score_mod over the keys
 seen), that call held by ``ref.HOLD`` in f32 against K4's plain version
 first; each prints its split plan.
 
+K4's prefill form runs a bf16 call on the tensor cores
+(``prefill_mma_kernel``).  The profiled prefill of each serving phase
+that runs K4, and the encoder's profiled forward, must show every K4
+launch on that kernel and none on the f32 ``prefill_kernel``; each bf16
+prefill row (dense, the hybrid's window, the encoder's non-causal form,
+gemma2's two capped forms) also gives ``tflop_s``, 4·hd a kept pair over
+its CUDA-event ms.  The build prints each ``prefill_mma_kernel<hd,
+capped>``'s registers and checks that none of the ten spills.
+
 Prints the queries' x-realtime, each serving phase's prefill time and
 decode rate, the audio phase's encode time, a ``{"kernels": [...]}`` line,
 the card's name and power limit, and last ``{"ok": true, "device":
@@ -172,6 +181,7 @@ from __future__ import annotations
 import contextlib
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -371,6 +381,41 @@ def max_sm_clock_hz() -> float:
     return float(out.stdout.split()[0]) * 1e6
 
 
+def ptxas_builds(reports: dict) -> list[tuple]:
+    """Each kernel entry of the ``nvcc -Xptxas -v`` reports ``{source:
+    log}``: (source, entry function, registers, bytes spilled (stores +
+    loads), its register and spill lines)."""
+    built = []
+    for name, log in reports.items():
+        for line in log.splitlines():
+            if "entry function" in line:
+                built.append((name, line.split("'")[1] if "'" in line
+                              else "", [0], [0], []))
+            elif built and built[-1][0] == name and (
+                    "registers" in line or "spill" in line):
+                _, _, regs, spill, lines = built[-1]
+                lines.append(line.split(":", 1)[-1].strip())
+                if "Used" in line:
+                    regs[0] = int(line.split("Used ")[1].split()[0])
+                else:
+                    spill[0] += sum(int(n) for n in re.findall(
+                        r"(\d+) bytes spill", line))
+    return [(name, entry, regs[0], spill[0], lines)
+            for name, entry, regs, spill, lines in built]
+
+
+def tensor_core_prefill_builds(built: list[tuple]) -> dict:
+    """``ptxas_builds``' ``prefill_mma_kernel<hd, capped>`` of attention.cu
+    (its arguments from the mangled name): (hd, capped) -> (registers,
+    bytes spilled)."""
+    out = {}
+    for name, entry, regs, spill, _ in built:
+        m = re.search(r"prefill_mma_kernelILi(\d+)ELb([01])E", entry)
+        if name == "attention" and m:
+            out[int(m[1]), m[2] == "1"] = (regs, spill)
+    return out
+
+
 def scan_inputs(torch, bsz, s, inner, n, x_dtype, dev, seed, with_h0=False):
     """K5's inputs as the Mamba mixer gives them on the card: float32
     softplus steps, silu'd activations and B/C rows in ``x_dtype``,
@@ -482,10 +527,12 @@ def timed_serve(torch, check, model, cfg, prompts, per_step: dict):
     return toks, launches, in_prefill, t_prefill, t_decode
 
 
-def profile_serve(torch, model, cfg, prompts, toks, t_prefill, t_decode):
+def profile_serve(torch, model, cfg, prompts, toks, t_prefill, t_decode,
+                  check=None, k4_prefill=0):
     """Where the device time goes: kernel time of one prefill and of 4
     decode steps under the profiler, against the unprofiled wall time of
-    the timed run."""
+    the timed run.  With ``k4_prefill`` launches of K4 a prefill, checks
+    that the profiled prefill ran them all on the tensor-core kernel."""
     from repro_torch.models import decode_step, prefill
 
     steps = SERVE_NEW - 1
@@ -512,6 +559,9 @@ def profile_serve(torch, model, cfg, prompts, toks, t_prefill, t_decode):
               f"{busy:.1f} ms on the card, {share}; top: " + "; ".join(
                   f"{name[:60]} {ms:.1f} ms x{n}" for name, ms, n in top[:6]),
               flush=True)
+        if k4_prefill and what == "prefill":
+            check_tensor_core_prefill(check, f"serve profile {cfg.name}, "
+                                      f"prefill", top, k4_prefill)
 
 
 @contextlib.contextmanager
@@ -691,6 +741,27 @@ def kernel_ms(torch, fn, calls=20) -> tuple[float, dict]:
     return sum(c * ms for c, ms in per_call.values()), per_call
 
 
+def prefill_rate(name, flops, ms, bound) -> dict:
+    """K4's bf16 prefill form timed at ``ms`` by CUDA events: prints and
+    returns its ``tflop_s``, ``flops`` (4·hd a kept pair) over ``ms``."""
+    tflop_s = flops / (ms * 1e-3) / 1e12
+    print(f"K4 {name} (bf16, tensor cores): {ms:.4f} ms, {tflop_s:.1f} "
+          f"TFLOP/s nominal ({flops / 1e9:.1f} GFLOP), {ms / bound:.1f}x "
+          f"the bound {bound:.4f} ms", flush=True)
+    return {"tflop_s": tflop_s}
+
+
+def check_tensor_core_prefill(check, what, by_name, n) -> None:
+    """A profile's kernels (``device_time``'s by-name rows) of a window in
+    which K4's prefill form ran ``n`` times in bf16: ``n`` launches of the
+    tensor-core kernel and none of the f32 one."""
+    tc = sum(c for name, _, c in by_name if "prefill_mma_kernel" in name)
+    f32 = sum(c for name, _, c in by_name if "prefill_kernel<" in name)
+    check(tc == n and f32 == 0, f"{what}: K4's bf16 prefill ran "
+          f"prefill_mma_kernel {tc} times ({n} expected) and the f32 "
+          f"prefill_kernel {f32} times")
+
+
 def check_split_drop(torch, check, name, q, k, v, q_offset, k_len, window,
                      cap, want):
     """The plain version with the values of the middle split (of those
@@ -815,7 +886,8 @@ def dense_serving_phase(torch, check, cfg, dev) -> list[dict]:
     # -- the timed serve, counted, and its profile ----------------------
     toks, launches, in_prefill, t_prefill, t_decode = timed_serve(
         torch, check, model, cfg, prompts, {"flash_attention": cfg.n_layers})
-    profile_serve(torch, model, cfg, prompts, toks, t_prefill, t_decode)
+    profile_serve(torch, model, cfg, prompts, toks, t_prefill, t_decode,
+                  check, cfg.n_layers)
     del model
     free_card(torch)
 
@@ -897,17 +969,19 @@ def dense_serving_phase(torch, check, cfg, dev) -> list[dict]:
           f"on the SFUs at {clock / 1e9:.3f} GHz -> {t_sfu * 1e3:.4f} ms.  "
           f"SDPA vs plain: max |d| {lib_err:.3g}", flush=True)
     bound = max(t_ops, t_bytes, t_sfu)
+    ms = time_ms(torch, lambda: flash_attention(q, k, v), 20)
     return [{"name": "flash_attention", "route": "cuda",
              "source": "src/repro_torch/csrc/attention.cu",
              "replaces": "src/repro/kernels/attention/attention.py:80",
              "launches": in_prefill.get("flash_attention", 0),
-             "max_abs_err": max(errs.values()),
-             "ms": time_ms(torch, lambda: flash_attention(q, k, v), 20),
+             "max_abs_err": max(errs.values()), "ms": ms,
              "plain_ms": time_ms(torch, lambda: attention_ref(q, k, v), 3),
              "bound_ms": bound * 1e3,
              "bound_by": "bytes" if t_bytes >= max(t_ops, t_sfu)
              else "operations",
-             "library_ms": time_ms(torch, library, 20)}, decode]
+             "library_ms": time_ms(torch, library, 20),
+             **prefill_rate("causal prefill", flops, ms, bound * 1e3)},
+            decode]
 
 
 def hybrid_serving_phase(torch, check, cfg, dev) -> list[dict]:
@@ -942,7 +1016,8 @@ def hybrid_serving_phase(torch, check, cfg, dev) -> list[dict]:
     toks, launches, in_prefill, t_prefill, t_decode = timed_serve(
         torch, check, model, cfg, prompts,
         {"rglru_scan": n_rec, "flash_attention": n_attn})
-    profile_serve(torch, model, cfg, prompts, toks, t_prefill, t_decode)
+    profile_serve(torch, model, cfg, prompts, toks, t_prefill, t_decode,
+                  check, n_attn)
     del model
     free_card(torch)
 
@@ -1071,19 +1146,20 @@ def hybrid_serving_phase(torch, check, cfg, dev) -> list[dict]:
           f"{pairs:.4g} exp on the SFUs at {clock / 1e9:.3f} GHz -> "
           f"{t_sfu * 1e3:.4f} ms.  SDPA (banded mask) vs plain: max |d| "
           f"{lib_err:.3g}", flush=True)
+    ms = time_ms(torch, lambda: flash_attention(q, k, v, window=win), 10)
     k4_row = {"name": f"flash_attention (window {win}, head_dim {hd})",
               "route": "cuda", "source": "src/repro_torch/csrc/attention.cu",
               "replaces": "src/repro/kernels/attention/attention.py:80",
               "launches": in_prefill.get("flash_attention", 0),
-              "max_abs_err": max(errs.values()),
-              "ms": time_ms(torch, lambda: flash_attention(
-                  q, k, v, window=win), 10),
+              "max_abs_err": max(errs.values()), "ms": ms,
               "plain_ms": time_ms(torch, lambda: attention_ref(
                   q, k, v, window=win), 2),
               "bound_ms": max(t_ops, t_bytes, t_sfu) * 1e3,
               "bound_by": "bytes" if t_bytes >= max(t_ops, t_sfu)
               else "operations",
-              "library_ms": time_ms(torch, library, 10)}
+              "library_ms": time_ms(torch, library, 10),
+              **prefill_rate(f"prefill, window {win}", flops, ms,
+                             max(t_ops, t_bytes, t_sfu) * 1e3)}
     return [k6_row, k4_row, decode]
 
 
@@ -1152,7 +1228,9 @@ def audio_phase(torch, check, cfg, dev) -> dict:
           f"audio {cfg.name}: logits {tuple(logits.shape)} "
           f"{str(logits.dtype)[6:]}, finite")
     busy, count, by_name = device_time(torch, encode)
-    k4_ms = sum(ms for name, ms, _ in by_name if "prefill_kernel" in name)
+    check_tensor_core_prefill(check, f"audio profile {cfg.name}, one forward",
+                              by_name, cfg.n_layers)
+    k4_ms = sum(ms for name, ms, _ in by_name if "prefill_" in name)
     share = (f"{busy / (wall * 1e3):.1%} of the timed forward's "
              f"{wall * 1e3:.1f} ms; K4 {k4_ms:.1f} ms, "
              f"{k4_ms / busy:.1%} of the card time" if busy
@@ -1234,19 +1312,20 @@ def audio_phase(torch, check, cfg, dev) -> dict:
           f"{pairs:.4g} exp on the SFUs at {clock / 1e9:.3f} GHz -> "
           f"{t_sfu * 1e3:.4f} ms.  SDPA vs plain: max |d| {lib_err:.3g}",
           flush=True)
+    ms = time_ms(torch, lambda: flash_attention(q, k, v, causal=False), 10)
     return {"name": f"flash_attention (non-causal, head_dim {hd})",
             "route": "cuda", "source": "src/repro_torch/csrc/attention.cu",
             "replaces": "src/repro/kernels/attention/attention.py:80",
             "launches": launches.get(NONCAUSAL, 0),
-            "max_abs_err": max(errs.values()),
-            "ms": time_ms(torch, lambda: flash_attention(
-                q, k, v, causal=False), 10),
+            "max_abs_err": max(errs.values()), "ms": ms,
             "plain_ms": time_ms(torch, lambda: attention_ref(
                 q, k, v, causal=False), 2),
             "bound_ms": max(t_ops, t_bytes, t_sfu) * 1e3,
             "bound_by": "bytes" if t_bytes >= max(t_ops, t_sfu)
             else "operations",
-            "library_ms": time_ms(torch, library, 10)}
+            "library_ms": time_ms(torch, library, 10),
+            **prefill_rate("non-causal prefill", flops, ms,
+                           max(t_ops, t_bytes, t_sfu) * 1e3)}
 
 
 def capped_inputs(torch, dev, bsz, sq, sk, h, kvh, d, seed, q_offset, cap):
@@ -1351,7 +1430,8 @@ def gemma2_serving_phase(torch, check, cfg, dev) -> list[dict]:
     check(launches.get("flash_attention", 0) == 0,
           f"serve {cfg.name}: K4's uncapped form launched "
           f"{launches.get('flash_attention', 0)} times (0 expected)")
-    profile_serve(torch, model, cfg, prompts, toks, t_prefill, t_decode)
+    profile_serve(torch, model, cfg, prompts, toks, t_prefill, t_decode,
+                  check, cfg.n_layers)
     del model
     free_card(torch)
 
@@ -1499,7 +1579,8 @@ def gemma2_serving_phase(torch, check, cfg, dev) -> list[dict]:
                      "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
                      "bound_by": "bytes" if t_bytes >= max(t_ops, t_sfu)
                      else "operations",
-                     "library_ms": flex_ms})
+                     "library_ms": flex_ms,
+                     **prefill_rate(f"capped {name}", flops, ms, bound)})
         del q, k, v
     free_card(torch)
     for i, key in ((2, CAPPED), (3, CAPPED_WINDOWED)):
@@ -1578,14 +1659,17 @@ def main() -> int:
     rows: list[dict] = []
     reports = build.compile_all()
     print(f"build: {time.perf_counter() - t0:.1f} s", flush=True)
-    for name, log in reports.items():
-        entry = ""
-        for line in log.splitlines():
-            if "entry function" in line:
-                entry = line.split("'")[1] if "'" in line else ""
-            elif "registers" in line or "spill" in line:
-                print(f"ptxas {name} {entry[:72]}: "
-                      f"{line.split(':', 1)[-1].strip()}")
+    built = ptxas_builds(reports)
+    for name, entry, _, _, lines in built:
+        for line in lines:
+            print(f"ptxas {name} {entry[:72]}: {line}")
+    tc = tensor_core_prefill_builds(built)
+    print("ptxas K4 prefill_mma_kernel<hd, capped>: " + "; ".join(
+        f"<{hd}, {str(cap).lower()}> {regs} registers, {spill} bytes spilled"
+        for (hd, cap), (regs, spill) in sorted(tc.items())), flush=True)
+    check(len(tc) == 10 and all(spill == 0 for _, spill in tc.values()),
+          f"K4's {len(tc)} tensor-core prefill kernels (10 expected: hd 32, "
+          f"64, 80, 128, 256, capped and not) spill nothing")
 
     spec = IngestSpec(height=720, width=1280, fps=30, segment_seconds=4)
     cfg = smoke_config()

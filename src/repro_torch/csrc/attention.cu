@@ -44,10 +44,31 @@
 //     cache or the ring, and in the encoder's forward over the frames
 //     (non-causal).
 //
-//     As in the TPU kernel: q is scaled in f32 before the product, scores,
-//     the running max and sum and the accumulator are f32, the soft-cap is
-//     cap·tanhf(s/cap) on the f32 score before the mask, masked scores are
-//     -1e30, and o = acc / max(l, 1e-30) is rounded to q's dtype once.
+//     As in the TPU kernel: scores, the running max and sum and the
+//     accumulator are f32, the soft-cap is cap·tanhf(s/cap) on the f32
+//     score before the mask, masked scores are -1e30, and o = acc / max(l,
+//     1e-30) is rounded to q's dtype once.  The f32 prefill form and the
+//     decode form scale q in f32 before the product, as the TPU kernel
+//     does; the bf16 prefill form scales the f32 score after it (below).
+//
+//     The bf16 prefill form's rounding, on the tensor cores:
+//      1. s = (q·kᵀ)·hd^-0.5: raw bf16 q times raw bf16 k with an f32
+//         accumulator, the f32 score then scaled.  A q scaled and rounded
+//         to bf16 first would move every score by up to 2^-9 of itself
+//         wherever hd^-0.5 is no power of two (hd 32, 80, 128), which
+//         breaks ref.HOLD in bf16 (tests/test_torch_kernels.py emulates
+//         each scheme on the CPU).
+//      2. The soft-cap (accurate tanhf: tanh.approx's ~2^-11 would move a
+//         score near cap 50 by ~0.024), the mask and the online softmax
+//         in f32, as above, with exp2f of log2e-scaled scores; the row
+//         max and sum are of the f32 p.
+//      3. p·v with p split in two bf16 parts, hi = bf16_rn(p) and lo =
+//         bf16_rn(p - hi), two tensor-core products against the bf16 v
+//         tile into one f32 accumulator: p keeps ~16 bits, where one bf16
+//         p (as SDPA and flex_attention round it) keeps 8 and fails the
+//         hold by 5-7x.  1.5x the nominal FLOPs of p·v; the bound counts
+//         4·hd a kept pair all the same.
+//      4. o = acc / max(l, 1e-30), rounded to bf16 once.
 //
 // Bound on an H100 at StarCoder2-3B's prefill shape (B 4, S 2048, H 24 over
 // KV 2, hd 128, bf16), as chip_smoke.py reckons it from the data sheet's
@@ -80,10 +101,39 @@
 // 1.3 us; Gemma2-2B (B 2, KV 4, hd 256) over 8,161 keys 66.8 MB, 20 us, and
 // over a local layer's 4,096 33.5 MB, 10 us.
 //
-// Design (a simple first kernel: f32 arithmetic on the CUDA cores, no
-// tensor cores, no asynchronous copies).
-//  * Prefill form (Sq > 1): one block of 256 threads per (tile of 64 query
-//    rows, query head, batch row).  The q tile is staged once in shared
+// Design.
+//  * bf16 prefill form (Sq > 1, bf16): prefill_mma_kernel, on the tensor
+//    cores with mma.sync.m16n8k16 (bf16 operands, f32 accumulators), as
+//    the f32 CUDA-core kernel below took ~25 TFLOP/s of the card's 989.
+//    One block of 4 warps per (query head, batch row, tile of 64 query
+//    rows); each warp owns 16 rows.  The grid's slowest dimension is the
+//    query tile, counted down, so the longest causal tiles of every head
+//    start first and the grid's tail is short ones.  Key tiles of BK rows
+//    (64; 32 at hd 256, whose 16 x 256 f32 accumulator alone is 128
+//    registers a thread) of k and v come by cp.async (16 bytes a thread)
+//    into a 2-stage ring in shared memory: tile t+1 is in flight while
+//    tile t is computed, one __syncthreads a tile.  Rows past the keys the
+//    tile may use (n_keys) and q rows past Sq are zero-filled by cp.async
+//    with src-size 0, never read, so a masked p of 0 never meets junk.
+//    Shared rows are padded to hd + 8 bf16 (16 bytes), so the 8 row
+//    addresses of each ldmatrix fall in 8 distinct 16-byte bank groups
+//    at every hd (the row stride is 16, 80, 48, 16 or 16 bytes mod 128 at
+//    hd 64, 32, 80, 128, 256).  q·kᵀ: A from q (ldmatrix; held in
+//    registers for the whole kernel at hd <= 128, re-read from shared
+//    memory at hd 256), B from the k tile (ldmatrix: k is key-major, the
+//    "col" operand as it lies).  The score fragment of two 8-key n-tiles
+//    is the A fragment of a 16-key k-step of p·v as it lies in registers;
+//    each k-step's hi and lo A fragments are made just before its
+//    products, so p never goes through shared memory; B from the v tile
+//    by ldmatrix.trans.  hd 80 is 5 k-steps of 16 and 10 n-tiles of 8: no
+//    padding.  The row max is reduced over the 4 lanes of a row with two
+//    shuffles a tile; the row sum stays a partial per lane until the end.
+//    Tiles are skipped as below; the mask is evaluated only in tiles that
+//    cross a warp's diagonal, its window's edge or Sk.  The soft-cap is a
+//    template flag, so the uncapped kernels carry no tanhf.
+//  * f32 prefill form (Sq > 1, f32; no timed path runs it): one block of
+//    256 threads per (tile of 64 query rows, query head, batch row).
+//    The q tile is staged once in shared
 //    memory, scaled, in f32; key tiles of 64 rows of k and v are staged in
 //    f32, tiles wholly above the causal diagonal, wholly left of every
 //    row's window or past Sk are never read (non-causal: every tile below
@@ -161,22 +211,8 @@ constexpr int kMaxGroups = 16;     // query heads per KV head (decode form)
 __device__ __forceinline__ float4 load4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
 }
-__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
-  const uint2 u = *reinterpret_cast<const uint2*>(p);
-  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
-  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
-  return make_float4(a.x, a.y, b.x, b.y);
-}
 __device__ __forceinline__ void store4(float* p, float4 x) {
   *reinterpret_cast<float4*>(p) = x;
-}
-__device__ __forceinline__ void store4(__nv_bfloat16* p, float4 x) {
-  __nv_bfloat162 lo = __floats2bfloat162_rn(x.x, x.y);
-  __nv_bfloat162 hi = __floats2bfloat162_rn(x.z, x.w);
-  uint2 u;
-  u.x = *reinterpret_cast<unsigned*>(&lo);
-  u.y = *reinterpret_cast<unsigned*>(&hi);
-  *reinterpret_cast<uint2*>(p) = u;
 }
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
@@ -397,6 +433,300 @@ prefill_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int e = 0; e < DR; ++e)
       store1(ob + r * q_row + DC * 64 + e * 16 + tx, acc[i][4 * DC + e] / den);
   }
+}
+
+// -- the bf16 prefill form on the tensor cores --------------------------
+constexpr int kTcThreads = 128;  // 4 warps of 16 query rows
+constexpr float kLog2e = 1.4426950408889634f;
+
+// keys per tile: 64, or 32 at hd 256 (its accumulator is 128 registers)
+template <int HD>
+__host__ __device__ constexpr int tc_keys() {
+  return HD == 256 ? 32 : 64;
+}
+// shared memory: the q tile and a 2-stage ring of k and v tiles, rows
+// padded to hd + 8 bf16
+template <int HD>
+constexpr int tc_smem_bytes() {
+  return (kBQ + 4 * tc_keys<HD>()) * (HD + 8) * 2;
+}
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+// 16 bytes from global to shared memory, or 16 zero bytes when !full
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool full) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(full ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+__device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, "
+               "[%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+__device__ __forceinline__ void ldmatrix_x4_trans(unsigned (&r)[4],
+                                                  const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, "
+               "%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+// d += a·b, a 16x16 bf16 (row), b 16x8 bf16 (col), d 16x8 f32
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4],
+                                         unsigned b0, unsigned b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+__device__ __forceinline__ unsigned bf16x2_bits(__nv_bfloat162 x) {
+  return *reinterpret_cast<unsigned*>(&x);
+}
+// p0, p1 (p0 in the low half) as hi = bf16_rn(p) and lo = bf16_rn(p - hi)
+__device__ __forceinline__ void split_bf16(float p0, float p1, unsigned& hi,
+                                           unsigned& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(p0, p1);
+  const float2 hf = __bfloat1622float2(h);
+  hi = bf16x2_bits(h);
+  lo = bf16x2_bits(__floats2bfloat162_rn(p0 - hf.x, p1 - hf.y));
+}
+
+// One block of 4 warps per (query head h, batch row b, query tile); the
+// tile is gridDim.z - 1 - blockIdx.z, so the longest causal tiles start
+// first.  Warp w owns query rows q0 + 16w .. q0 + 16w + 15; lane l holds,
+// in each 8-column n-tile of a score or output fragment, rows l/4 and
+// l/4 + 8 of them at columns 2(l%4) and 2(l%4) + 1.
+template <int HD, bool CAP>
+__global__ void __launch_bounds__(kTcThreads, 2)
+prefill_mma_kernel(const __nv_bfloat16* __restrict__ q,
+                   const __nv_bfloat16* __restrict__ k,
+                   const __nv_bfloat16* __restrict__ v,
+                   __nv_bfloat16* __restrict__ o, int Sq, int Sk, int H,
+                   int KV, int window, int causal, float scale, float cap) {
+  constexpr int BK = tc_keys<HD>();
+  constexpr int LD = HD + 8;         // padded shared row, in bf16
+  constexpr int CH = HD / 8;         // 16-byte chunks a row
+  constexpr int NT = BK / 8;         // 8-key n-tiles of a score tile
+  constexpr int DT = HD / 8;         // 8-column n-tiles of the output
+  constexpr int KS = HD / 16;        // 16-deep k-steps of q·kᵀ
+  constexpr bool QREG = HD <= 128;   // q's A fragments kept in registers
+  static_assert(HD % 16 == 0 && DT % 2 == 0, "head_dim: a multiple of 16");
+  extern __shared__ uint4 tc_smem[];
+  __nv_bfloat16* q_s = reinterpret_cast<__nv_bfloat16*>(tc_smem);  // [kBQ][LD]
+  __nv_bfloat16* kv_s = q_s + kBQ * LD;  // stage i: k [BK][LD], then v
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * kBQ;
+  const int w0 = q0 + warp * 16;  // this warp's first query row
+  const int kvh = h / (H / KV);
+  const long long q_row = (long long)H * HD;   // between positions of q, o
+  const long long kv_row = (long long)KV * HD;  // between positions of k, v
+  const __nv_bfloat16* qb = q + (long long)b * Sq * q_row + (long long)h * HD;
+  const __nv_bfloat16* kb = k + (long long)b * Sk * kv_row + (long long)kvh * HD;
+  const __nv_bfloat16* vb = v + (long long)b * Sk * kv_row + (long long)kvh * HD;
+  __nv_bfloat16* ob = o + (long long)b * Sq * q_row + (long long)h * HD;
+
+  // keys any row of this tile may see, as in prefill_kernel
+  const int n_keys = causal ? min(Sk, min(q0 + kBQ, Sq)) : Sk;
+  const int k_first = window > 0 ? max(0, q0 - window + 1) / BK * BK : 0;
+  const int n_tiles = (n_keys - k_first + BK - 1) / BK;
+
+  auto load_kv = [&](int t) {
+    const int k0 = k_first + t * BK;
+    __nv_bfloat16* ks = kv_s + (t & 1) * 2 * BK * LD;
+    __nv_bfloat16* vs = ks + BK * LD;
+    // not unrolled: unrolled, ptxas keeps every chunk's addresses live
+    // across the key loop, and hd 256 spilled (32 and 120 bytes)
+#pragma unroll 1
+    for (int i = tid; i < BK * CH; i += kTcThreads) {
+      const int r = i / CH, c = i % CH * 8;
+      const bool in = k0 + r < n_keys;  // else zeros, never junk
+      const long long off = (long long)(in ? k0 + r : 0) * kv_row + c;
+      cp_async16(ks + r * LD + c, kb + off, in);
+      cp_async16(vs + r * LD + c, vb + off, in);
+    }
+  };
+  for (int i = tid; i < kBQ * CH; i += kTcThreads) {
+    const int r = i / CH, c = i % CH * 8;
+    const bool in = q0 + r < Sq;
+    cp_async16(q_s + r * LD + c, qb + (long long)(in ? q0 + r : 0) * q_row + c,
+               in);
+  }
+  load_kv(0);
+  cp_async_commit();
+
+  // ldmatrix row addresses: q (A: rows l%16, columns 8(l/16)), k (B of two
+  // n-tiles: keys l%8 + 8(l/16), columns 8((l/8)%2)), v (B of two n-tiles
+  // by .trans: keys l%8 + 8((l/8)%2), columns 8(l/16))
+  const int a_row = lane & 15, a_col = (lane >> 4) * 8;
+  const int k_row = (lane & 7) + (lane >> 4) * 8, k_col = (lane >> 3 & 1) * 8;
+  const int v_row = (lane & 7) + (lane >> 3 & 1) * 8, v_col = (lane >> 4) * 8;
+  const __nv_bfloat16* q_frag = q_s + (warp * 16 + a_row) * LD + a_col;
+
+  unsigned qf[QREG ? KS : 1][4];
+  if constexpr (QREG) {
+    cp_async_wait_all();
+    __syncthreads();
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks) ldmatrix_x4(qf[ks], q_frag + ks * 16);
+  }
+
+  float acc[DT][4];
+#pragma unroll
+  for (int d = 0; d < DT; ++d)
+    acc[d][0] = acc[d][1] = acc[d][2] = acc[d][3] = 0.f;
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};  // log2e-scaled max
+  const float s_scale = CAP ? scale : scale * kLog2e;
+  const int row = w0 + (lane >> 2);  // this lane's rows: row and row + 8
+
+  for (int t = 0; t < n_tiles; ++t) {
+    const int k0 = k_first + t * BK;
+    cp_async_wait_all();  // tile t is in (and q)
+    __syncthreads();      // for every thread; tile t - 1's readers are done
+    if (t + 1 < n_tiles) {
+      load_kv(t + 1);     // into tile t - 1's stage, while t is computed
+      cp_async_commit();
+    }
+    const __nv_bfloat16* ks = kv_s + (t & 1) * 2 * BK * LD;
+    const __nv_bfloat16* vs = ks + BK * LD;
+
+    // s = q·kᵀ on the tensor cores, f32
+    float s[NT][4];
+#pragma unroll
+    for (int j = 0; j < NT; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) {
+      unsigned a[4];
+      if constexpr (QREG) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) a[i] = qf[kk][i];
+      } else {
+        ldmatrix_x4(a, q_frag + kk * 16);
+      }
+#pragma unroll
+      for (int j = 0; j < NT; j += 2) {
+        unsigned bk[4];
+        ldmatrix_x4(bk, ks + (j * 8 + k_row) * LD + kk * 16 + k_col);
+        mma_bf16(s[j], a, bk[0], bk[1]);
+        mma_bf16(s[j + 1], a, bk[2], bk[3]);
+      }
+    }
+
+    // scale, soft-cap, mask (only where the tile crosses this warp's
+    // diagonal, its window's edge or Sk), then the online softmax in the
+    // log2 domain
+    const bool edge = k0 + BK > Sk ||
+                      (causal && (k0 + BK - 1 > w0 ||
+                                  (window > 0 && w0 + 15 - k0 >= window)));
+    float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = s[j][e] * s_scale;
+        if constexpr (CAP) x = cap * tanhf(x / cap) * kLog2e;
+        if (edge) {
+          const int pos = row + (e >> 1) * 8;
+          const int key = k0 + j * 8 + 2 * (lane & 3) + (e & 1);
+          if (!(key < Sk && (!causal || (key <= pos &&
+                                         (window == 0 || pos - key < window)))))
+            x = kNegInf;
+        }
+        s[j][e] = x;
+        mx[e >> 1] = fmaxf(mx[e >> 1], x);
+      }
+    }
+    float alpha[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      const float m_new = fmaxf(m[r], mx[r]);
+      alpha[r] = exp2f(m[r] - m_new);
+      m[r] = m_new;
+      l[r] *= alpha[r];
+    }
+#pragma unroll
+    for (int d = 0; d < DT; ++d) {
+      acc[d][0] *= alpha[0];
+      acc[d][1] *= alpha[0];
+      acc[d][2] *= alpha[1];
+      acc[d][3] *= alpha[1];
+    }
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[j][e] = exp2f(s[j][e] - m[e >> 1]);
+        l[e >> 1] += s[j][e];
+      }
+    }
+
+    // acc += p·v, p as hi + lo: a 16-key k-step's A fragment is the score
+    // fragment of n-tiles 2kk and 2kk + 1
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      unsigned hi[4], lo[4];
+      split_bf16(s[2 * kk][0], s[2 * kk][1], hi[0], lo[0]);
+      split_bf16(s[2 * kk][2], s[2 * kk][3], hi[1], lo[1]);
+      split_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1], hi[2], lo[2]);
+      split_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3], hi[3], lo[3]);
+#pragma unroll
+      for (int d = 0; d < DT; d += 2) {
+        unsigned bv[4];
+        ldmatrix_x4_trans(bv, vs + (kk * 16 + v_row) * LD + d * 8 + v_col);
+        mma_bf16(acc[d], hi, bv[0], bv[1]);
+        mma_bf16(acc[d], lo, bv[0], bv[1]);
+        mma_bf16(acc[d + 1], hi, bv[2], bv[3]);
+        mma_bf16(acc[d + 1], lo, bv[2], bv[3]);
+      }
+    }
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    l[r] = fmaxf(l[r], 1e-30f);
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int pos = row + r * 8;
+    if (pos >= Sq) continue;
+    __nv_bfloat16* dst = ob + pos * q_row + 2 * (lane & 3);
+#pragma unroll
+    for (int d = 0; d < DT; ++d)
+      *reinterpret_cast<__nv_bfloat162*>(dst + d * 8) = __floats2bfloat162_rn(
+          acc[d][2 * r] / l[r], acc[d][2 * r + 1] / l[r]);
+  }
+}
+
+template <int HD, bool CAP>
+cudaError_t launch_prefill_mma(const void* q, const void* k, const void* v,
+                               void* o, int B, int Sq, int Sk, int H, int KV,
+                               int window, int causal, float scale, float cap,
+                               cudaStream_t stream) {
+  constexpr int smem = tc_smem_bytes<HD>();
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      prefill_mma_kernel<HD, CAP>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (attr != cudaSuccess) return attr;
+  const dim3 grid(H, B, (Sq + kBQ - 1) / kBQ);
+  prefill_mma_kernel<HD, CAP><<<grid, kTcThreads, smem, stream>>>(
+      (const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
+      (const __nv_bfloat16*)v, (__nv_bfloat16*)o, Sq, Sk, H, KV, window,
+      causal, scale, cap);
+  return cudaSuccess;
 }
 
 // A lane's slice of a k or v row: E consecutive values of T, kept in
@@ -721,6 +1051,15 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
     // the prefill form takes one dtype: no served path mixes them there
     if constexpr (!std::is_same<TQ, TKV>::value) {
       return (int)cudaErrorInvalidValue;
+    } else if constexpr (std::is_same<TQ, __nv_bfloat16>::value) {
+      const cudaError_t err =
+          cap > 0.f ? launch_prefill_mma<HD, true>(q, k, v, o, B, Sq, Sk, H,
+                                                   KV, window, causal, scale,
+                                                   cap, stream)
+                    : launch_prefill_mma<HD, false>(q, k, v, o, B, Sq, Sk, H,
+                                                    KV, window, causal, scale,
+                                                    cap, stream);
+      if (err != cudaSuccess) return (int)err;
     } else {
       constexpr int smem = prefill_smem_bytes<HD>();
       static const cudaError_t attr = cudaFuncSetAttribute(
@@ -776,7 +1115,8 @@ int launch_hd(int hd, const void* q, const void* k, const void* v, void* o,
 // last valid position (q_offset k_len - 1); its keys go in n_split splits
 // of split_len from the first key it sees (n_split·split_len must cover
 // them), and with n_split > 1 ws is an f32 workspace of
-// B·KV·n_split·(H/KV)·(hd + 2) floats.  Longer queries run the prefill form, which takes q_offset 0 and
+// B·KV·n_split·(H/KV)·(hd + 2) floats.  Longer queries run the prefill form
+// (bf16 on the tensor cores, f32 on the CUDA cores), which takes q_offset 0 and
 // k_len Sk only (window 0: no window) and ignores ws, n_split and
 // split_len.  causal 0 (the prefill form's non-causal function) takes no
 // window and neither Sq 1 nor (q_offset, k_len) other than (0, Sk).

@@ -31,7 +31,10 @@ built for that prefill form only.
 
 The wrapper takes CUDA tensors only, checks them, allocates the output
 with ``torch.empty``, launches on the current stream and raises if the
-launch was refused.  The decode form runs split-KV: ``decode_splits`` cuts
+launch was refused.  The prefill form runs a bfloat16 call on the tensor
+cores (raw q·k scaled in float32, p split in bfloat16 hi + lo for p·v,
+so that it keeps ``ref.HOLD``) and a float32 call on the CUDA cores.
+The decode form runs split-KV: ``decode_splits`` cuts
 the keys a query sees into splits from the cache's shape, the window and
 the card's SM count alone, so every step over one cache launches the same
 grid; the splits' float32 workspace is kept from call to call

@@ -5,6 +5,8 @@ is compiled on first use by ``nvcc`` for Hopper (``sm_90a``) into its own
 shared library, loaded with ``ctypes``.  A library's file name carries a
 hash of its source and flags, so an edited source never loads a stale
 build; the build directory (``repro_torch/_build/``) is ignored by git.
+Beside each library lies its ``ptxas`` report (``.ptxas``: registers and
+spills of every kernel), so a cached build still reports them.
 Compiles write to a temporary name and ``os.replace`` it into place, so
 two threads (or processes) racing on the same build cannot tear a file.
 
@@ -44,31 +46,43 @@ def _target(name: str) -> tuple[str, str]:
     return src, os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:12]}.so")
 
 
+def _report(lib: str) -> str:
+    """Where the ptxas report of the library ``lib`` is kept."""
+    return lib[:-len(".so")] + ".ptxas"
+
+
 def compile_all(names=SOURCES) -> dict[str, str]:
     """Compile every missing library, one ``nvcc`` per source, all started
-    together.  Returns ``{name: ptxas report}`` of the compiles it ran;
-    raises with the compiler's output if one fails."""
+    together.  Returns ``{name: ptxas report}`` of every library asked for,
+    built now or before; raises with the compiler's output if one fails."""
     os.makedirs(BUILD_DIR, exist_ok=True)
     procs = {}
     for name in names:
         src, out = _target(name)
-        if os.path.exists(out):
+        if os.path.exists(out) and os.path.exists(_report(out)):
             continue
         tmp = f"{out}.{os.getpid()}.{threading.get_ident()}.tmp"
         procs[name] = (subprocess.Popen(
             [nvcc_path(), *NVCC_FLAGS, "-o", tmp, src],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True),
             tmp, out)
-    reports, failed = {}, []
+    failed = []
     for name, (proc, tmp, out) in procs.items():
         log, _ = proc.communicate()
         if proc.returncode != 0:
             failed.append(f"nvcc {name}.cu failed ({proc.returncode}):\n{log}")
             continue
+        # the report first, so that a library on disk has its report
+        with open(f"{tmp}.ptxas", "w") as f:
+            f.write(log)
+        os.replace(f"{tmp}.ptxas", _report(out))
         os.replace(tmp, out)
-        reports[name] = log
     if failed:
         raise RuntimeError("\n".join(failed))
+    reports = {}
+    for name in names:
+        with open(_report(_target(name)[1])) as f:
+            reports[name] = f.read()
     return reports
 
 

@@ -9,8 +9,11 @@ versions, K2's banded taps reproduce the dense weights, K5's and K6's
 plain scans carry their state across a split, K4's decode form is a row
 of its prefill form, capped and windowed too, its window keeps each row's
 last keys, its non-causal form, mixed dtypes and a misplaced decode
-window are refused where no path takes them, and its decode form's split
-plan covers every key once with the same grid at every length); the
+window are refused where no path takes them, its decode form's split
+plan covers every key once with the same grid at every length, and its
+bf16 prefill form's rounding -- raw bf16 q·k scaled in f32, p split in
+bf16 hi + lo -- holds ``ref.HOLD`` where p rounded once or q scaled in
+bf16 would not); the
 tests marked ``cuda`` launch the kernels (and run the operators, the
 reduced Falcon-Mamba, a reduced StarCoder2, a reduced RecurrentGemma, a
 reduced HuBERT and a reduced Gemma2 on the card) and skip without a card:
@@ -335,6 +338,88 @@ def test_attention_hold_passes_rounding_and_fails_a_wrong_key_tile(dtype):
         assert float((bad - want).abs().max()) < \
             0.5 * float(want.abs().max())
         assert hold_ratio(bad, want) > 1, window
+
+
+def _tensor_core_prefill(q, k, v, scheme, window=0, causal=True,
+                         logit_cap=0.0):
+    """K4's bf16 prefill form as its tensor-core kernel rounds it, in plain
+    torch over whole rows (the kernel's online softmax reorders only f32
+    sums, which ``ref.HOLD``'s r term covers).  ``scheme``: ``"split"``,
+    the kernel's (raw bf16 q·k with an f32 result scaled by hd^-0.5 after,
+    p in f32 split into hi = bf16(p) and lo = bf16(p - hi) for two products
+    with v, summed in f32); ``"p once"``, p rounded to bf16 once before
+    p·v (as SDPA and flex_attention do); ``"q scaled"``, q·hd^-0.5 rounded
+    to bf16 before the product, then p split.  Returns o in bf16."""
+    bsz, s, h, hd = q.shape
+    kvh = k.shape[2]
+    qf = q.float()
+    if scheme == "q scaled":
+        qf = (qf * hd ** -0.5).bfloat16().float()
+    sc = torch.einsum("bqkgd,bpkd->bkgqp",
+                      qf.reshape(bsz, s, kvh, h // kvh, hd), k.float())
+    if scheme != "q scaled":
+        sc = sc * hd ** -0.5
+    if logit_cap:
+        sc = logit_cap * torch.tanh(sc / logit_cap)
+    pos = torch.arange(s)
+    ok = pos[None, :] <= pos[:, None] if causal else torch.ones(
+        s, s, dtype=torch.bool)
+    if window:
+        ok = ok & (pos[:, None] - pos[None, :] < window)
+    sc = torch.where(ok, sc, -1e30)
+    p = torch.exp(sc - sc.amax(dim=-1, keepdim=True))
+    hi = p.bfloat16().float()
+    parts = [hi] if scheme == "p once" else [hi, (p - hi).bfloat16().float()]
+    pv = sum(torch.einsum("bkgqp,bpkd->bkgqd", part, v.float())
+             for part in parts)
+    o = pv / p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
+    return o.permute(0, 3, 1, 2, 4).reshape(bsz, s, h, hd).bfloat16()
+
+
+#: K4's prefill forms as (window, causal, logit_cap): a window narrower
+#: than the tensor-core kernel's key tile (64 keys; 32 at hd 256) and one
+#: across tiles; the capped forms over keys whose scores pass the cap in
+#: every row (``scores_over_cap``)
+PREFILL_FORMS = {"causal": (0, True, 0.0), "window 16": (16, True, 0.0),
+                 "window 100": (100, True, 0.0), "non-causal": (0, False, 0.0),
+                 "capped": (0, True, 50.0),
+                 "capped, window 100": (100, True, 50.0)}
+
+
+def _prefill_inputs(form, bsz, sq, h, kvh, hd, dtype, seed, device="cpu"):
+    """q, k, v for ``PREFILL_FORMS[form]`` in ``dtype`` on ``device`` (the
+    capped forms' by ``_capped_inputs``), and the form's keyword
+    arguments."""
+    window, causal, cap = PREFILL_FORMS[form]
+    make = _capped_inputs if cap else _attn_inputs
+    q, k, v = make(bsz, sq, sq, h, kvh, hd, dtype, seed, device=device)
+    return q, k, v, dict(window=window, causal=causal, logit_cap=cap)
+
+
+@pytest.mark.parametrize("hd", [32, 64, 80, 128, 256])
+@pytest.mark.parametrize("form", sorted(PREFILL_FORMS))
+def test_bf16_prefill_rounding_holds_with_p_split_in_hi_and_lo(form, hd):
+    """The tensor-core prefill form's rounding (``_tensor_core_prefill``,
+    "split") holds ``ref.HOLD`` in bf16 in every prefill form at every head
+    dim the kernel takes; the same with p rounded to bf16 once fails it."""
+    q, k, v, kw = _prefill_inputs(form, 2, 256, 4, 2, hd, torch.bfloat16,
+                                  seed=hd + len(form))
+    want = attention_ref(q, k, v, **kw)
+    assert hold_ratio(_tensor_core_prefill(q, k, v, "split", **kw), want) <= 1
+    assert hold_ratio(_tensor_core_prefill(q, k, v, "p once", **kw), want) > 1
+
+
+@pytest.mark.parametrize("hd", [32, 80, 128])
+@pytest.mark.parametrize("form", sorted(PREFILL_FORMS))
+def test_bf16_prefill_rounding_fails_with_q_scaled_in_bf16(form, hd):
+    """Where hd^-0.5 is no power of two, q scaled and rounded to bf16
+    before the product fails ``ref.HOLD`` even with p split, so the kernel
+    scales the f32 score instead."""
+    q, k, v, kw = _prefill_inputs(form, 2, 256, 4, 2, hd, torch.bfloat16,
+                                  seed=hd + len(form))
+    want = attention_ref(q, k, v, **kw)
+    assert hold_ratio(_tensor_core_prefill(q, k, v, "q scaled", **kw),
+                      want) > 1
 
 
 #: cache shapes (B, Sk, KV) and SM counts for the decode form's split plan:
@@ -826,8 +911,9 @@ def test_flash_attention_noncausal_hd80_matches_plain_on_card(cuda, sk, h,
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_attention_causal_hd80_matches_plain_on_card(cuda, dtype):
-    """Head_dim 80's column layout (a float4 and a single column a lane in
-    p·v) under the causal mask too, over ragged tiles."""
+    """Head_dim 80 under the causal mask too, over ragged tiles: in f32 its
+    column layout (a float4 and a single column a lane in p·v), in bf16 the
+    tensor-core kernel's 5 k-steps and 10 n-tiles."""
     q, k, v = _attn_inputs(2, 130, 130, 4, 2, 80, dtype, seed=80,
                            device=cuda)
     assert hold_ratio(K4.flash_attention(q, k, v),
@@ -934,6 +1020,71 @@ def test_flash_attention_capped_matches_plain_on_card(cuda, hd, h, kvh, sq,
     if window:
         assert hold_ratio(attention_ref(q, k, v, q_offset, k_len,
                                         logit_cap=50.0), want) > 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd,h,kvh", [(32, 4, 1), (64, 4, 2), (80, 16, 16),
+                                      (128, 24, 2), (256, 16, 1)])
+@pytest.mark.parametrize("sq", [17, 130, 300, 1499])
+@pytest.mark.parametrize("form", sorted(PREFILL_FORMS))
+def test_flash_attention_bf16_prefill_forms_on_card(cuda, hd, h, kvh, sq,
+                                                     form):
+    """K4's bf16 prefill form, the tensor-core kernel, against its plain
+    version element by element within ``ref.HOLD`` at every head dim it
+    takes (up to 16 query heads a KV head), in every form (causal, a window
+    narrower than a key tile and one across tiles, non-causal, capped with
+    and without a window), at 17 rows (below one 64-row tile) and at 130,
+    300 and 1499 (ragged 16- and 64-row tiles and key tiles); one count
+    under its form's key.  The plain version with one middle 64-key tile
+    of v zeroed fails the same hold."""
+    q, k, v, kw = _prefill_inputs(form, 2, sq, h, kvh, hd, torch.bfloat16,
+                                   seed=hd + sq + len(form), device=cuda)
+    LAUNCHES.reset()
+    got = K4.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert LAUNCHES.snapshot() == {K4.launch_key(kw["causal"], kw["window"],
+                                                 kw["logit_cap"]): 1}
+    want = attention_ref(q, k, v, **kw)
+    assert got.dtype == torch.bfloat16 and got.shape == want.shape
+    assert hold_ratio(got, want) <= 1
+    lo = sq // 2 // 64 * 64
+    v_bad = v.clone()
+    v_bad[:, lo:lo + 64] = 0
+    assert hold_ratio(attention_ref(q, k, v_bad, **kw), want) > 1
+
+
+def _kernel_names(fn, calls=3):
+    """The names of the kernels ``calls`` calls of ``fn()`` ran on the
+    card, by the profiler.  Several calls, since a trace may miss its
+    window's first kernel (one call's trace once came back empty)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return {e.name for e in prof.events() if e.device_type == DeviceType.CUDA}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", sorted(PREFILL_FORMS))
+def test_flash_attention_f32_prefill_keeps_the_f32_hold_on_card(cuda, form):
+    """An f32 prefill call still runs the f32 CUDA-core kernel and meets
+    the f32 hold (2^-13 of the row's rms), which bf16 tensor cores could
+    not; a bf16 call of the same form runs the tensor-core kernel alone
+    (StarCoder2's 24 heads over 2 of 128, 300 rows)."""
+    q, k, v, kw = _prefill_inputs(form, 2, 300, 24, 2, 128, torch.float32,
+                                   seed=len(form), device=cuda)
+    got = K4.flash_attention(q, k, v, **kw)
+    assert got.dtype == torch.float32
+    assert hold_ratio(got, attention_ref(q, k, v, **kw)) <= 1
+    names = _kernel_names(lambda: K4.flash_attention(q, k, v, **kw))
+    assert any("prefill_kernel<float" in n for n in names), names
+    qb, kb, vb = (t.bfloat16() for t in (q, k, v))
+    names = _kernel_names(lambda: K4.flash_attention(qb, kb, vb, **kw))
+    assert len(names) == 1 and "prefill_mma_kernel<128" in names.pop()
 
 
 @pytest.mark.cuda
