@@ -59,9 +59,16 @@ same model with the plain scan forced on the card (logits within 1e-3 of
 their largest magnitude, greedy tokens equal, ``generate`` serving over
 the launcher's bf16 cache in every serving phase's hold) and 124-token
 prefill + 4 decode steps over an f32 cache against the full forward (the
-same bound), and K5 against its
-plain version at one layer's prefill shape (4, 2048, 8192, n 16), at n 8,
-and at S = 1 from a non-zero state (within 1e-5 of the largest value).
+same bound), and K5 against its plain version (y and the final state
+within 1e-5 of the largest value) at one layer's prefill shape (4, 2048,
+8192, n 16), with ``a`` as initialised and drawn per (channel, state),
+at n 8, at S = 1 from a non-zero state, and at S 2,049 over 1,000
+channels (ragged in both); the plain version on each input-level mutant
+(``ref.MUTANTS``: state n-1 dropped from y, b and c a step late, h0
+ignored) must fail that hold.  K5 is timed at the prefill shape and at
+the decode shape (4, 1, 8192, 16) from a state, there by CUDA events over
+back-to-back calls and by the profiler, beside its bytes bound; its
+launch geometry (lanes a channel, blocks, warps an SM) is printed.
 
 The dense serving phase serves ``starcoder2-3b`` at its published width
 and depth (30 layers, d_model 3072, 24 heads over 2 KV heads, head_dim
@@ -166,7 +173,8 @@ launch on that kernel and none on the f32 ``prefill_kernel``; each bf16
 prefill row (dense, the hybrid's window, the encoder's non-causal form,
 gemma2's two capped forms) also gives ``tflop_s``, 4·hd a kept pair over
 its CUDA-event ms.  The build prints each ``prefill_mma_kernel<hd,
-capped>``'s registers and checks that none of the ten spills.
+capped>``'s registers and checks that none of the ten spills; the same
+for K5's four ``scan_kernel<xc, n>`` builds.
 
 Prints the queries' x-realtime, each serving phase's prefill time and
 decode rate, the audio phase's encode time, a ``{"kernels": [...]}`` line,
@@ -416,10 +424,29 @@ def tensor_core_prefill_builds(built: list[tuple]) -> dict:
     return out
 
 
-def scan_inputs(torch, bsz, s, inner, n, x_dtype, dev, seed, with_h0=False):
+def scan_builds(built: list[tuple]) -> dict:
+    """``ptxas_builds``' ``scan_kernel<TX, N>`` of mamba_scan.cu (its
+    arguments from the mangled name): (xc dtype, n) -> (registers, bytes
+    spilled)."""
+    out = {}
+    for name, entry, regs, spill, _ in built:
+        m = re.search(r"scan_kernelI(f|13__nv_bfloat16)Li(\d+)E", entry)
+        if name == "mamba_scan" and m:
+            out["float32" if m[1] == "f" else "bfloat16", int(m[2])] = (
+                regs, spill)
+    return out
+
+
+def scan_inputs(torch, bsz, s, inner, n, x_dtype, dev, seed, with_h0=False,
+                a_kind="init"):
     """K5's inputs as the Mamba mixer gives them on the card: float32
     softplus steps, silu'd activations and B/C rows in ``x_dtype``,
-    ``a = -(1..n)`` per channel, optionally a non-zero initial state."""
+    optionally a non-zero initial state; ``a`` as initialised,
+    ``-(1..n)`` per channel (``a_kind`` "init"), or ``-exp(u)`` with u
+    drawn uniform in [log 0.05, log 50] per (channel, state) ("drawn"),
+    so that no power of one decay gives the others."""
+    import math
+
     import torch.nn.functional as F
 
     g = torch.Generator(device=dev).manual_seed(seed)
@@ -430,8 +457,12 @@ def scan_inputs(torch, bsz, s, inner, n, x_dtype, dev, seed, with_h0=False):
     delta = F.softplus(randn(bsz, s, inner) - 2.0)
     xc = F.silu(randn(bsz, s, inner)).to(x_dtype)
     bmat, cmat = randn(bsz, s, n).to(x_dtype), randn(bsz, s, n).to(x_dtype)
-    a = -torch.arange(1, n + 1, dtype=torch.float32, device=dev).repeat(
-        inner, 1)
+    if a_kind == "init":
+        a = -torch.arange(1, n + 1, dtype=torch.float32, device=dev).repeat(
+            inner, 1)
+    else:
+        a = -torch.exp(torch.empty((inner, n), device=dev).uniform_(
+            math.log(0.05), math.log(50.0), generator=g))
     return delta, xc, bmat, cmat, a, (randn(bsz, inner, n) if with_h0
                                       else None)
 
@@ -643,12 +674,23 @@ def free_card(torch) -> None:
     torch.cuda.empty_cache()
 
 
-def serving_phase(torch, check, cfg, dev) -> dict:
+def scan_hold(torch, got, want) -> float:
+    """How far K5's (y, h_T) ``got`` stands from ``want``: the larger of
+    the two parts' ``rel_err`` over ``SCAN_TOL``; the hold passes at 1 or
+    less."""
+    return max(rel_err(torch, g, w) for g, w in zip(got, want)) / SCAN_TOL
+
+
+def serving_phase(torch, check, cfg, dev, scan_registers) -> dict:
     """``cfg`` (Falcon-Mamba-7B) served on ``dev``, the kernel route held
-    against the plain scan and decode against forward, and K5 held and
-    timed against its plain version.  Returns K5's ``kernels`` row."""
-    from repro_torch.kernels.mamba_scan.mamba_scan import mamba_scan
-    from repro_torch.kernels.mamba_scan.ref import mamba_scan_ref
+    against the plain scan and decode against forward, and K5 held against
+    its plain version (the input-level mutants of ``ref.MUTANTS`` failing)
+    and timed at the prefill and decode shapes.  Returns K5's ``kernels``
+    row, with the builds' ``scan_registers``."""
+    from repro_torch.kernels.mamba_scan.mamba_scan import (geometry,
+                                                           mamba_scan)
+    from repro_torch.kernels.mamba_scan.ref import (MUTANTS, mamba_scan_ref,
+                                                    mutant_inputs)
     from repro_torch.models import init_params
     from repro_torch.models import recurrent
 
@@ -675,24 +717,45 @@ def serving_phase(torch, check, cfg, dev) -> dict:
     # -- K5 against its plain version, at one layer's shapes --------------
     inner, n = cfg.ssm.expand * cfg.d_model, cfg.ssm.state_dim
     x_dtype = torch.bfloat16
-    scan_errs = {}
-    for name, shape, with_h0 in (
-            ("prefill", (SERVE_BATCH, SERVE_PROMPT, inner, n), False),
-            ("n 8", (SERVE_BATCH, SERVE_PROMPT, inner, 8), False),
-            ("decode from a state", (SERVE_BATCH, 1, inner, n), True)):
-        args = scan_inputs(torch, *shape, x_dtype, dev,
-                           seed=len(scan_errs), with_h0=with_h0)
-        y, h = mamba_scan(*args)
-        y_ref, h_ref = mamba_scan_ref(*args)
-        scan_errs[name] = (float((y - y_ref).abs().max()),
-                           float((h - h_ref).abs().max()))
-        check(rel_err(torch, y, y_ref) <= SCAN_TOL
-              and rel_err(torch, h, h_ref) <= SCAN_TOL,
-              f"K5 mamba_scan vs plain at {name} {shape}: max |d| y "
-              f"{scan_errs[name][0]:.3g}, h_T {scan_errs[name][1]:.3g}")
-    args = scan_inputs(torch, SERVE_BATCH, SERVE_PROMPT, inner, n, x_dtype,
-                       dev, seed=0)
     bsz, s = SERVE_BATCH, SERVE_PROMPT
+    scan_errs = {}
+    for name, shape, with_h0, a_kind in (
+            ("prefill", (bsz, s, inner, n), False, "init"),
+            ("prefill, drawn a", (bsz, s, inner, n), False, "drawn"),
+            ("n 8, drawn a", (bsz, s, inner, 8), False, "drawn"),
+            ("decode from a state", (bsz, 1, inner, n), True, "init"),
+            ("decode from a state, drawn a", (bsz, 1, inner, n), True,
+             "drawn"),
+            ("ragged S and width from a state, drawn a",
+             (2, s + 1, 1000, n), True, "drawn")):
+        args = scan_inputs(torch, *shape, x_dtype, dev, seed=len(scan_errs),
+                           with_h0=with_h0, a_kind=a_kind)
+        got = mamba_scan(*args)
+        want = mamba_scan_ref(*args)
+        scan_errs[name] = [float((g - w).abs().max())
+                           for g, w in zip(got, want)]
+        ratio = scan_hold(torch, got, want)
+        check(ratio <= 1,
+              f"K5 mamba_scan vs plain at {name} {shape}: max |d| y "
+              f"{scan_errs[name][0]:.3g}, h_T {scan_errs[name][1]:.3g}, at "
+              f"most {ratio:.3g} of the bound")
+        for mutant in MUTANTS:
+            bad = mutant_inputs(mutant, *args)
+            if bad is not None:
+                ratio = scan_hold(torch, got, mamba_scan_ref(*bad))
+                check(ratio > 1, f"K5 hold at {name}: the plain version "
+                      f"with {mutant} stands at {ratio:.3g} of the bound, "
+                      f"so it fails")
+        del args, got, want
+    free_card(torch)
+    geo = geometry(n, x_dtype, bsz, inner)
+    print(f"K5 launch at {(bsz, s, inner, n)}: {geo['lanes']} lanes a "
+          f"channel, {geo['threads']} threads ({geo['channels']} channels) "
+          f"a block, chunks of {geo['chunk']} steps; {geo['blocks']} blocks, "
+          f"at most {geo['blocks_per_sm']} an SM, {geo['waves']} wave(s), "
+          f"{geo['warps_per_sm']} warps an SM; {geo['registers']} registers, "
+          f"{geo['local_bytes']} bytes of local memory a thread", flush=True)
+    args = scan_inputs(torch, bsz, s, inner, n, x_dtype, dev, seed=0)
     elems = bsz * s * inner * n
     nbytes = (bsz * s * inner * (4 + 2)          # delta f32, xc bf16 in
               + 2 * bsz * s * n * 2 + inner * n * 4
@@ -707,17 +770,44 @@ def serving_phase(torch, check, cfg, dev) -> dict:
           f"{t_ops * 1e3:.4f} ms; {elems / 1e9:.3f} G exp on the SFUs at "
           f"{clock / 1e9:.3f} GHz (clocks.max.sm) -> {t_sfu * 1e3:.4f} ms",
           flush=True)
+    ms = time_ms(torch, lambda: mamba_scan(*args), 20)
+    plain_ms = time_ms(torch, lambda: mamba_scan_ref(*args), 2)
+    del args
+    # the decode shape: one step from a state, h0 read and h_T written
+    dec = scan_inputs(torch, bsz, 1, inner, n, x_dtype, dev, seed=3,
+                      with_h0=True)
+    dec_bytes = (bsz * inner * (4 + 2) + 2 * bsz * n * 2 + inner * n * 4
+                 + 2 * bsz * inner * n * 4 + bsz * inner * 4)
+    dec_bound = dec_bytes / PEAK_BYTES_S * 1e3
+    dec_ms = time_ms(torch, lambda: mamba_scan(*dec), 200)
+    dec_dev_ms = 0.0
+    for _ in range(3):  # a profiler trace may come back empty
+        dec_dev_ms = dec_dev_ms or kernel_ms(
+            torch, lambda: mamba_scan(*dec), 50)[0]
+    check(dec_dev_ms > 0, "K5's decode-shape calls show in a profiler trace")
+    n_all, n_prefill = launches.get("mamba_scan", 0), in_prefill.get(
+        "mamba_scan", 0)
+    print(f"K5 at {(bsz, s, inner, n)}: {ms:.4f} ms ({ms / (bound * 1e3):.2f}"
+          f"x its bound), plain {plain_ms:.2f} ms; at the decode shape "
+          f"{(bsz, 1, inner, n)} from a state: {dec_ms:.4f} ms a call by "
+          f"CUDA events over 200 back-to-back calls, {dec_dev_ms:.4f} ms on "
+          f"the card (profiler); reads and writes {dec_bytes / 1e6:.2f} MB, "
+          f"bound {dec_bound:.4f} ms (bytes); launches {n_prefill} in the "
+          f"prefill, {n_all - n_prefill} in the serve steps", flush=True)
     return {"name": "mamba_scan", "route": "cuda",
             "source": "src/repro_torch/csrc/mamba_scan.cu",
             "replaces": "src/repro/kernels/mamba_scan/mamba_scan.py:56",
-            "launches": launches.get("mamba_scan", 0),
+            "launches": n_all, "prefill_launches": n_prefill,
+            "decode_launches": n_all - n_prefill,
             "max_abs_err": max(max(e) for e in scan_errs.values()),
-            "ms": time_ms(torch, lambda: mamba_scan(*args), 20),
-            "plain_ms": time_ms(torch, lambda: mamba_scan_ref(*args), 2),
-            "bound_ms": bound * 1e3,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound * 1e3,
             "bound_by": "bytes" if t_bytes >= max(t_ops, t_sfu)
             else "operations",
-            "library_ms": None}
+            "library_ms": None, "decode_ms": dec_ms,
+            "decode_device_ms": dec_dev_ms, "decode_bound_ms": dec_bound,
+            "decode_bound_by": "bytes",
+            "registers": scan_registers,
+            "warps_per_sm": geo["warps_per_sm"]}
 
 
 def attention_inputs(torch, dev, bsz, sq, sk, h, kvh, d, seed, dtype):
@@ -1067,6 +1157,7 @@ def hybrid_serving_phase(torch, check, cfg, dev) -> list[dict]:
               "source": "src/repro_torch/csrc/rglru.cu",
               "replaces": "src/repro/kernels/rglru/rglru.py:48",
               "launches": launches.get("rglru_scan", 0),
+              "prefill_launches": in_prefill.get("rglru_scan", 0),
               "max_abs_err": max(lru_errs.values()),
               "ms": time_ms(torch, lambda: rglru_scan(a, b), 20),
               "plain_ms": time_ms(torch, lambda: rglru_scan_ref(a, b), 2),
@@ -1670,6 +1761,15 @@ def main() -> int:
     check(len(tc) == 10 and all(spill == 0 for _, spill in tc.values()),
           f"K4's {len(tc)} tensor-core prefill kernels (10 expected: hd 32, "
           f"64, 80, 128, 256, capped and not) spill nothing")
+    sb = scan_builds(built)
+    scan_registers = {f"<{x}, {n}>": regs
+                      for (x, n), (regs, _) in sorted(sb.items())}
+    print("ptxas K5 scan_kernel<xc, n>: " + "; ".join(
+        f"<{x}, {n}> {regs} registers, {spill} bytes spilled"
+        for (x, n), (regs, spill) in sorted(sb.items())), flush=True)
+    check(len(sb) == 4 and all(spill == 0 for _, spill in sb.values()),
+          f"K5's {len(sb)} scan_kernel builds (4 expected: xc f32 and bf16, "
+          f"n 8 and 16) spill nothing")
 
     spec = IngestSpec(height=720, width=1280, fps=30, segment_seconds=4)
     cfg = smoke_config()
@@ -1871,7 +1971,8 @@ def main() -> int:
     # -- the serving phases, counters zeroed inside each --------------------
     dev = torch.device("cuda")
     t0 = time.perf_counter()
-    rows.append(serving_phase(torch, check, get_config(SERVE_ARCH), dev))
+    rows.append(serving_phase(torch, check, get_config(SERVE_ARCH), dev,
+                              scan_registers))
     print(f"serving phase: {time.perf_counter() - t0:.1f} s", flush=True)
     free_card(torch)
     t0 = time.perf_counter()

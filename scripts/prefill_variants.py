@@ -13,23 +13,20 @@ printed from its ptxas report.  Then, at the five bf16 prefill shapes
 variant runs through the port's wrapper (``flash_attention``), is held by
 ``ref.HOLD`` against the plain version and is timed by CUDA events, 10
 calls after a warm-up, in turns (A B C D, D C B A, ...) for ``--rounds``
-rounds; the least time of the rounds is printed with its nominal
-TFLOP/s (4·hd a kept pair).  Ends with one JSON line.  Needs one CUDA
-card.
+rounds; the least time of the rounds and the worst hold are printed with
+the nominal TFLOP/s (4·hd a kept pair).  Ends with one JSON line.  Needs
+one CUDA card.  ``variants.py`` holds what this script shares with
+``scan_variants.py``.
 """
 
 from __future__ import annotations
 
 import argparse
-import ctypes
 import json
 import os
-import subprocess
 import sys
 
-HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-sys.path.insert(0, os.path.join(HERE, "src"))
-sys.path.insert(0, HERE)
+from variants import bind, build_all, c_entry, in_turns, logger, variant_source
 
 #: name -> (what it changes, [(text in attention.cu, its replacement)])
 VARIANTS = {
@@ -66,16 +63,6 @@ SHAPES = (("dense, causal", (4, 2048, 24, 2, 128), {}),
            {"window": 4096, "logit_cap": 50.0}))
 
 
-def variant_source(src: str, edits) -> str:
-    for old, new in edits:
-        n = src.count(old)
-        if n != 1:
-            raise SystemExit(f"variant text found {n} times (1 expected): "
-                             f"{old!r}")
-        src = src.replace(old, new)
-    return src
-
-
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--rounds", type=int, default=2)
@@ -92,33 +79,16 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("no CUDA card", file=sys.stderr)
         return 1
-    log_f = open(args.out, "w") if args.out else None
-
-    def say(line: str) -> None:
-        print(line, flush=True)
-        if log_f:
-            print(line, file=log_f, flush=True)
-
-    say(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                        "--format=csv,noheader"], capture_output=True,
-                       text=True).stdout.strip())
-    out_dir = os.path.join(build.BUILD_DIR, "variants")
-    os.makedirs(out_dir, exist_ok=True)
+    say = logger(args.out)
+    say(cs.card_line())
     with open(os.path.join(build.CSRC, "attention.cu")) as f:
         source = f.read()
-    procs = {}
-    for i, (name, (_, edits)) in enumerate(VARIANTS.items()):
-        path = os.path.join(out_dir, f"variant{i}.cu")
-        with open(path, "w") as f:
-            f.write(variant_source(source, edits))
-        procs[name] = (subprocess.Popen(
-            [build.nvcc_path(), *build.NVCC_FLAGS, "-o",
-             os.path.join(out_dir, f"libvariant{i}.so"), path],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), i)
+    built = build_all({name: variant_source(source, edits)
+                       for name, (_, edits) in VARIANTS.items()},
+                      os.path.join(build.BUILD_DIR, "variants"), "variant")
     kernels, result = {}, {}
-    for name, (proc, i) in procs.items():
-        log, _ = proc.communicate()
-        if proc.returncode:
+    for name, (lib, log) in built.items():
+        if lib is None:
             raise SystemExit(f"nvcc of variant {name!r} failed:\n{log}")
         regs = {f"<{hd}, {str(cap).lower()}>": rs for (hd, cap), rs in
                 sorted(cs.tensor_core_prefill_builds(
@@ -126,14 +96,11 @@ def main() -> int:
         say(f"{name} ({VARIANTS[name][0]}): " + "; ".join(
             f"{k} {r} registers, {s} bytes spilled"
             for k, (r, s) in regs.items()))
-        fn = ctypes.CDLL(os.path.join(out_dir, f"libvariant{i}.so"))
-        fn = fn.flash_attention
-        fn.argtypes = k4._ARGTYPES
-        fn.restype = ctypes.c_int
-        kernels[name] = fn
+        kernels[name] = c_entry(lib, "flash_attention", k4._ARGTYPES)
         result[name] = {"ptxas": regs, "forms": {}}
 
     dev = torch.device("cuda")
+    order = list(kernels)
     for form, (b, s, h, kvh, d), kw in SHAPES:
         cap = kw.get("logit_cap", 0.0)
         if cap:
@@ -147,20 +114,19 @@ def main() -> int:
         w = kw.get("window", 0)
         pairs = b * h * (s * s if kw.get("causal", True) is False else sum(
             min(i + 1, w or s) for i in range(s)))
-        times = {name: [] for name in kernels}
-        holds = {}
-        order = list(kernels)
-        for rnd in range(args.rounds):
-            for name in (order if rnd % 2 == 0 else order[::-1]):
-                k4._kernel = lambda fn=kernels[name]: fn
-                holds[name] = hold_ratio(k4.flash_attention(q, k, v, **kw),
-                                         want)
-                times[name].append(cs.time_ms(
-                    torch, lambda: k4.flash_attention(q, k, v, **kw), 10))
+
+        def measure(name):
+            bind(k4, kernels[name])
+            return (hold_ratio(k4.flash_attention(q, k, v, **kw), want),
+                    cs.time_ms(torch, lambda: k4.flash_attention(q, k, v,
+                                                                 **kw), 10))
+
+        rounds = in_turns(order, args.rounds, measure)
         for name in order:
-            ms = min(times[name])
+            ms = min(t for _, t in rounds[name])
             result[name]["forms"][form] = {
-                "ms": ms, "rounds_ms": times[name], "hold": holds[name],
+                "ms": ms, "rounds_ms": [t for _, t in rounds[name]],
+                "hold": max(x for x, _ in rounds[name]),
                 "tflop_s": 4 * d * pairs / (ms * 1e-3) / 1e12}
         say(f"{form}: " + "; ".join(
             f"{name} {x['ms']:.4f} ms ({x['tflop_s']:.1f} TFLOP/s, hold "

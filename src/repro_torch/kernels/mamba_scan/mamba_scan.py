@@ -26,16 +26,50 @@ from ..build import LAUNCHES, LIBRARIES, check_launch
 #: state sizes the kernel is instantiated for (reduced configs use 8,
 #: Falcon-Mamba-7B 16)
 STATE_DIMS = (8, 16)
+#: lanes a channel's states are split across (``csrc/mamba_scan.cu``'s
+#: ``kLanes``; ``geometry`` reports the build's own)
+LANES = 2
 _TYPES = (torch.float32, torch.bfloat16)
+#: the C entries' arguments: ``mamba_scan``'s and ``mamba_scan_geometry``'s
+_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+_GEOMETRY_ARGTYPES = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
 
 
 @functools.cache
 def _kernel():
     fn = LIBRARIES.get("mamba_scan").mamba_scan
-    ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [ptr] * 8 + [i32] * 5 + [ptr]
+    fn.argtypes = _ARGTYPES
     fn.restype = ctypes.c_int
     return fn
+
+
+@functools.cache
+def _geometry():
+    fn = LIBRARIES.get("mamba_scan").mamba_scan_geometry
+    fn.argtypes = _GEOMETRY_ARGTYPES
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def geometry(n: int, x_dtype: torch.dtype, bsz: int, inner: int) -> dict:
+    """The launch the kernel makes on the current card at (bsz, S, inner,
+    n) with ``xc`` in ``x_dtype``, as the loaded build reports it: lanes a
+    channel, threads and channels a block, steps a chunk, the blocks of the
+    grid, the most blocks an SM holds (CUDA's occupancy calculator), the
+    warps an SM the grid gives, the waves it takes, and the kernel's
+    registers and local-memory bytes a thread."""
+    out = (ctypes.c_int * 7)()
+    check_launch("mamba_scan_geometry",
+                 _geometry()(n, int(x_dtype == torch.bfloat16), out))
+    lanes, threads, channels, chunk, per_sm, regs, local = out
+    blocks = bsz * -(-inner // channels)
+    sms = torch.cuda.get_device_properties(
+        torch.cuda.current_device()).multi_processor_count
+    return {"lanes": lanes, "threads": threads, "channels": channels,
+            "chunk": chunk, "blocks": blocks, "blocks_per_sm": per_sm,
+            "warps_per_sm": min(per_sm, -(-blocks // sms)) * threads // 32,
+            "waves": -(-blocks // (max(per_sm, 1) * sms)), "registers": regs,
+            "local_bytes": local}
 
 
 def _check(t: torch.Tensor, name: str, shape: tuple, dtypes):

@@ -6,7 +6,10 @@ This file imports neither ``jax`` nor ``repro``, so it also runs on a GPU
 host that has PyTorch but no JAX.  On the CPU it checks what the kernels
 receive (the wrappers refuse CPU tensors, ``ops`` routes them to the plain
 versions, K2's banded taps reproduce the dense weights, K5's and K6's
-plain scans carry their state across a split, K4's decode form is a row
+plain scans carry their state across a split, K5's kernel arithmetic --
+the decay as 2^(delta·a·log2 e), one fma a state, y summed over lanes in
+butterfly order -- holds its 1e-5 bound where its input-level mutants
+fail it, K4's decode form is a row
 of its prefill form, capped and windowed too, its window keeps each row's
 last keys, its non-causal form, mixed dtypes and a misplaced decode
 window are refused where no path takes them, its decode form's split
@@ -43,7 +46,8 @@ from repro_torch.kernels.dct8 import ops as dct_ops
 from repro_torch.kernels.dct8.ref import dct8_dequantize_ref, dct8_quantize_ref
 from repro_torch.kernels.mamba_scan import mamba_scan as K5
 from repro_torch.kernels.mamba_scan import ops as scan_ops
-from repro_torch.kernels.mamba_scan.ref import mamba_scan_ref
+from repro_torch.kernels.mamba_scan.ref import (MUTANTS as SCAN_MUTANTS,
+                                                mamba_scan_ref, mutant_inputs)
 from repro_torch.kernels.resize import ops as resize_ops
 from repro_torch.kernels.resize import resize as K2
 from repro_torch.kernels.resize.ref import resize_ref
@@ -113,11 +117,13 @@ def test_resize_band_reproduces_dense_weights(h1, w1, h2, w2):
 
 
 def _scan_inputs(bsz, s, inner, n, dtype=torch.float32, seed=0,
-                 with_h0=False, device="cpu"):
+                 with_h0=False, device="cpu", a_kind="init"):
     """K5's inputs as the Mamba mixer gives them: softplus steps (float32
     there, as the mixer's bias is), silu'd activations and B/C rows in
-    ``dtype``, ``a = -(1..n)`` per channel, and optionally a non-zero
-    initial state."""
+    ``dtype``, and optionally a non-zero initial state; ``a`` as
+    initialised, ``-(1..n)`` per channel (``a_kind`` "init"), or
+    ``-exp(u)`` with u uniform in [log 0.05, log 50] per (channel, state)
+    ("drawn"), so that no power of one decay gives the others."""
     g = torch.Generator().manual_seed(seed)
     delta = torch.nn.functional.softplus(
         torch.randn((bsz, s, inner), generator=g) - 2.0)
@@ -126,8 +132,62 @@ def _scan_inputs(bsz, s, inner, n, dtype=torch.float32, seed=0,
     cmat = torch.randn((bsz, s, n), generator=g)
     a = -torch.arange(1, n + 1, dtype=torch.float32).repeat(inner, 1)
     h0 = torch.randn((bsz, inner, n), generator=g) if with_h0 else None
+    if a_kind == "drawn":
+        a = -torch.exp(torch.empty((inner, n)).uniform_(
+            math.log(0.05), math.log(50.0), generator=g))
     out = [delta, xc.to(dtype), bmat.to(dtype), cmat.to(dtype), a, h0]
     return [None if t is None else t.to(device) for t in out]
+
+
+#: K5 against its plain version: y and the final state within 1e-5 of
+#: their largest |value| (at least 1); the two sum the C-contraction in
+#: different orders and round the decay apart
+SCAN_TOL = 1e-5
+
+
+def _scan_holds(got, want) -> bool:
+    """``got`` (y, h_T) within ``SCAN_TOL`` of ``want``, both parts (y of
+    S 0 has no element and holds when its shape does)."""
+    return all(g.shape == w.shape and (
+        w.numel() == 0 or float((g.float() - w.float()).abs().max())
+        <= SCAN_TOL * max(1.0, float(w.float().abs().max())))
+        for g, w in zip(got, want))
+
+
+def _scan_in_kernel_order(delta, xc, bmat, cmat, a, h0=None,
+                          lanes=K5.LANES):
+    """K5 as its kernel rounds it, in plain torch: a2 = a·log2(e) and
+    d·a2 in f32, the decay 2^(d·a2) exact in float64 and rounded to f32,
+    subnormals flushed to zero (the card's ``ex2.approx.ftz`` is about 2
+    ulp off that, which only the card test sees); dx = delta·xc and
+    dbx = dx·b in f32; h = da·h + dbx as one fma (product and sum in
+    float64, rounded once to f32); y as ``lanes`` partial sums, each over
+    its n / lanes states in order (a product, then fmas), added in
+    butterfly order (``__shfl_xor_sync`` at offsets 1, 2, ...)."""
+    bsz, s, inner = delta.shape
+    n = a.shape[-1]
+    sl = n // lanes
+    a2 = a.float() * torch.tensor(math.log2(math.e), dtype=torch.float32)
+    h = (torch.zeros((bsz, inner, n)) if h0 is None else h0.float())
+    y = torch.empty((bsz, s, inner))
+    for t in range(s):
+        d = delta[:, t].float()
+        da = torch.exp2((d[..., None] * a2).double()).float()
+        da = torch.where(da < 2.0 ** -126, torch.zeros_like(da), da)
+        dbx = (d * xc[:, t].float())[..., None] * bmat[:, t].float()[:, None]
+        h = (da.double() * h.double() + dbx.double()).float()
+        hl = h.reshape(bsz, inner, lanes, sl)
+        cl = cmat[:, t].float().reshape(bsz, 1, lanes, sl)
+        p = hl[..., 0] * cl[..., 0]
+        for j in range(1, sl):
+            p = (hl[..., j].double() * cl[..., j].double()
+                 + p.double()).float()
+        off = 1
+        while off < lanes:
+            p = p + p[..., torch.arange(lanes) ^ off]
+            off *= 2
+        y[:, t] = p[..., 0]
+    return y, h
 
 
 def test_mamba_scan_wrapper_refuses_cpu_and_ops_routes_to_plain():
@@ -160,6 +220,33 @@ def test_mamba_scan_plain_carries_state_across_a_split(dtype):
     y0, _ = mamba_scan_ref(delta, xc, b, c, a)
     assert torch.equal(y0, mamba_scan_ref(delta, xc, b, c, a,
                                           torch.zeros_like(h0))[0])
+
+
+@pytest.mark.parametrize("n", [8, 16])
+@pytest.mark.parametrize("a_kind", ["init", "drawn"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_scan_rounding_in_kernel_order_holds(n, a_kind, dtype):
+    """The kernel's arithmetic (``_scan_in_kernel_order``: the decay as
+    2^(d·(a·log2 e)), the state as one fma, y summed over lanes in
+    butterfly order) holds ``SCAN_TOL`` against the plain version over
+    2,048 steps, a from the initialisation and drawn per (channel,
+    state), xc in f32 and bf16.  It shows the change of order and the
+    pre-scaling only, not the error of the card's ex2.approx."""
+    args = _scan_inputs(2, 2048, 3, n, dtype, seed=n + len(a_kind),
+                        with_h0=True, a_kind=a_kind)
+    assert _scan_holds(_scan_in_kernel_order(*args), mamba_scan_ref(*args))
+
+
+@pytest.mark.parametrize("mutant", SCAN_MUTANTS)
+@pytest.mark.parametrize("a_kind", ["init", "drawn"])
+def test_scan_hold_fails_input_mutants(mutant, a_kind):
+    """Each input-level mutant of ``SCAN_MUTANTS`` run through the plain
+    version fails ``SCAN_TOL`` against the kernel's arithmetic on the
+    true inputs, as the card test and chip_smoke.py ask of the kernel."""
+    args = _scan_inputs(2, 300, 3, 16, torch.bfloat16, seed=5,
+                        with_h0=True, a_kind=a_kind)
+    bad = mamba_scan_ref(*mutant_inputs(mutant, *args))
+    assert not _scan_holds(_scan_in_kernel_order(*args), bad)
 
 
 def _attn_inputs(bsz, sq, sk, h, kvh, hd, dtype=torch.float32, seed=0,
@@ -664,26 +751,42 @@ def test_operators_divide_exactly_on_card(cuda):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("n", [8, 16])
-@pytest.mark.parametrize("s", [1, 300])
+@pytest.mark.parametrize("s", [0, 1, 300, 2049])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("with_h0", [False, True])
+@pytest.mark.parametrize("a_kind", ["init", "drawn"])
 def test_mamba_scan_kernel_matches_plain_on_card(cuda, n, s, dtype,
-                                                 with_h0):
+                                                 with_h0, a_kind):
     """K5 against its plain version on the same card inputs: y and the
-    final state within 1e-5 relative to their largest value (the two sum
-    the C-contraction in different orders); a width that is not a
-    multiple of the kernel's 128-channel block exercises the ragged
-    edge."""
+    final state within ``SCAN_TOL`` of their largest value (the two sum
+    the C-contraction in different orders and round the decay apart),
+    while the plain version on each input-level mutant that changes
+    something (``SCAN_MUTANTS``) fails that hold.  A width of 200 channels
+    is no multiple of the kernel's block, S 2,049 crosses many chunks and
+    ends ragged, and S 0 gives the initial state back."""
     args = _scan_inputs(3, s, 200, n, dtype, seed=s + n, with_h0=with_h0,
-                        device=cuda)
+                        device=cuda, a_kind=a_kind)
     LAUNCHES.reset()
-    y, h = K5.mamba_scan(*args)
+    got = K5.mamba_scan(*args)
     torch.cuda.synchronize()
     assert LAUNCHES.snapshot() == {"mamba_scan": 1}
-    y_ref, h_ref = mamba_scan_ref(*args)
-    for got, want in ((y, y_ref), (h, h_ref)):
-        scale = max(1.0, float(want.abs().max()))
-        assert float((got - want).abs().max()) <= 1e-5 * scale
+    assert _scan_holds(got, mamba_scan_ref(*args))
+    for mutant in SCAN_MUTANTS:
+        bad = mutant_inputs(mutant, *args)
+        assert bad is None or not _scan_holds(got, mamba_scan_ref(*bad)), \
+            mutant
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [8, 16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_mamba_scan_geometry_on_card(cuda, n, dtype):
+    """The loaded build splits a channel over ``LANES`` lanes, spills
+    nothing, and holds every block of Falcon-Mamba-7B's prefill shape
+    (batch 4, inner 8192) at once."""
+    geo = K5.geometry(n, dtype, 4, 8192)
+    assert geo["lanes"] == K5.LANES and geo["local_bytes"] == 0, geo
+    assert geo["waves"] == 1, geo
 
 
 @pytest.mark.cuda
