@@ -13,9 +13,12 @@ a user calls: ``VideoStore.ingest_segment`` writes 4 segments of
 ``jackson`` and 4 of ``dashcam`` (120 frames of 720x1280 each) into a
 golden SF and a fast-coded SF, then ``run_query`` runs Query A
 (Diff -> S-NN -> NN) on jackson and Query B (Motion -> License -> OCR) on
-dashcam.  The launch counters of the three CUDA kernels (K1
-dct8_dequantize, K2 resize_bilinear, K3 dct8_quantize) are zeroed just
-before ingest and read just after the queries: each must have launched.
+dashcam.  The launch counters are zeroed just before ingest and read just
+after it and just after the queries: K3's encoder form
+(dct8_encode_chunks, a segment's whole DPCM encode in one launch) must
+launch once a segment and coded format (16 times), the standalone K3
+(dct8_quantize) never, K1 (dct8_dequantize) not in ingest but in the
+queries (the decoder's), K2 (resize_bilinear) at least once.
 
 On 720p30 scenes Query A's Diff flags no event (cars move a few pixels a
 frame, far under its threshold, tuned on 96x160 scenes at 8 fps), so its
@@ -33,6 +36,17 @@ Then it checks what came out:
   shapes the main path gives it: K3's symbols on identical residual input
   (equal but for at most 1e-6 of them, by one), K1 at atol 1e-3 (the
   reference's Pallas-vs-jnp bound), K2 at atol 1e-3 on 0-255 data;
+* K3's encoder form on a golden segment (120 x 720 x 1280, keyframe 250),
+  the same segment transcoded to the fast SF (60 x 544 x 960, keyframe
+  10) and a ragged case (13 frames in chunks of 5, squares whose edges
+  ring past 0 and 255): symbols equal to the stepped K3 + K1 route's
+  (the standalone kernels, torch's add and clamp), within K3's bound of
+  the plain version, and each defect of ``ref.ENCODE_MUTANTS`` (the
+  prediction reset every frame, the clamp dropped, a tail padded with
+  mid-grey) failing that bound on the ragged case (the reset on every
+  case); timed at the golden and fast shapes by CUDA events and by the
+  profiler beside the stepped route, and one segment's ingest encode into
+  the fast SF profiled (busy share, kernels by name);
 * each query's stage stats against the plain path (the port on the CPU)
   on the same store, and Query B's items at F1 >= 0.98; Query A's items
   are empty on both paths, as its Diff stage flags nothing;
@@ -106,7 +120,10 @@ layer's prefill shape (2, 4096, 4096) and at S 1 from a state (within
 window at head_dim 256 (2, 4096, 16 over 1, 256) and in its decode form
 over a full ring, element by element within ``ref.HOLD``, in bf16 and in
 f32.  K4 with the window is timed beside ``F.scaled_dot_product_attention``
-with an explicit banded mask; no single PyTorch call computes K6.
+with an explicit banded mask; no single PyTorch call computes K6.  K6 is
+timed at the prefill shape and at the decode shape (2, 1, 4096) from a
+state, there by CUDA events over back-to-back calls and by the profiler,
+beside its bytes bound.
 
 The audio phase encodes with ``hubert-xlarge`` at its published width and
 depth (48 layers, d_model 1280, 16 heads over 16 of head_dim 80, GeLU d_ff
@@ -780,10 +797,7 @@ def serving_phase(torch, check, cfg, dev, scan_registers) -> dict:
                  + 2 * bsz * inner * n * 4 + bsz * inner * 4)
     dec_bound = dec_bytes / PEAK_BYTES_S * 1e3
     dec_ms = time_ms(torch, lambda: mamba_scan(*dec), 200)
-    dec_dev_ms = 0.0
-    for _ in range(3):  # a profiler trace may come back empty
-        dec_dev_ms = dec_dev_ms or kernel_ms(
-            torch, lambda: mamba_scan(*dec), 50)[0]
+    dec_dev_ms = kernel_ms(torch, lambda: mamba_scan(*dec), 50)[0]
     check(dec_dev_ms > 0, "K5's decode-shape calls show in a profiler trace")
     n_all, n_prefill = launches.get("mamba_scan", 0), in_prefill.get(
         "mamba_scan", 0)
@@ -825,10 +839,19 @@ def kernel_ms(torch, fn, calls=20) -> tuple[float, dict]:
     ``calls`` back-to-back calls under the profiler (``device_time``):
     each kernel's mean time times its launches a call, summed, and by name
     (launches a call, ms a launch).  Launches a call are rounded: the
-    trace may miss a window's first kernel."""
-    _, _, by_name = device_time(torch, lambda: [fn() for _ in range(calls)])
-    per_call = {name: (round(n / calls), ms / n) for name, ms, n in by_name}
-    return sum(c * ms for c, ms in per_call.values()), per_call
+    trace may miss a window's first kernel.  A trace that comes back
+    empty, or with too few kernels to count one a call, is taken again,
+    up to 3 windows in all; the time is 0.0 if none counts one."""
+    total, per_call = 0.0, {}
+    for _ in range(3):
+        _, _, by_name = device_time(
+            torch, lambda: [fn() for _ in range(calls)])
+        per_call = {name: (round(n / calls), ms / n)
+                    for name, ms, n in by_name}
+        total = sum(c * ms for c, ms in per_call.values())
+        if total > 0:
+            break
+    return total, per_call
 
 
 def prefill_rate(name, flops, ms, bound) -> dict:
@@ -1164,6 +1187,26 @@ def hybrid_serving_phase(torch, check, cfg, dev) -> list[dict]:
               "bound_ms": lru_bound, "bound_by": lru_by,
               "library_ms": None}
     del a, b
+    # the decode shape: one step from a state, a, b and h0 read, h written
+    dec = lru_inputs(HYBRID_BATCH, 1, w, seed=3, with_h0=True)
+    dec_bytes = 4 * HYBRID_BATCH * w * 4
+    dec_ms = time_ms(torch, lambda: rglru_scan(*dec), 200)
+    dec_dev_ms = kernel_ms(torch, lambda: rglru_scan(*dec), 50)[0]
+    check(dec_dev_ms > 0, "K6's decode-shape calls show in a profiler trace")
+    k6_row.update({
+        "decode_launches": k6_row["launches"] - k6_row["prefill_launches"],
+        "decode_ms": dec_ms, "decode_device_ms": dec_dev_ms,
+        "decode_bound_ms": dec_bytes / PEAK_BYTES_S * 1e3,
+        "decode_bound_by": "bytes"})
+    print(f"K6 at {(HYBRID_BATCH, HYBRID_PROMPT, w)}: {k6_row['ms']:.4f} ms; "
+          f"at the decode shape {(HYBRID_BATCH, 1, w)} from a state: "
+          f"{dec_ms:.4f} ms a call by CUDA events over 200 back-to-back "
+          f"calls, {dec_dev_ms:.4f} ms on the card (profiler); reads and "
+          f"writes {dec_bytes / 1e3:.1f} KB, bound "
+          f"{k6_row['decode_bound_ms']:.5f} ms (bytes); launches "
+          f"{k6_row['prefill_launches']} in the prefill, "
+          f"{k6_row['decode_launches']} in the serve steps", flush=True)
+    del dec
     free_card(torch)
 
     # -- K4 with the window at head_dim 256, and its decode form over a ring
@@ -1707,6 +1750,124 @@ def gemma2_serving_phase(torch, check, cfg, dev) -> list[dict]:
     return rows
 
 
+def encoder_cases(torch, vs, spec, first_frames, dev) -> list[tuple]:
+    """(name, (n, h, w) u8 frames on the card, keyframe interval, quant
+    scale) of K3's encoder form: one golden segment (ingest's first jackson
+    segment), the same segment transcoded to the fast SF as ingest
+    transcodes it, and a ragged case (13 frames in chunks of 5, black and
+    white squares whose edges ring past 0 and 255: ``ref.encode_inputs``)."""
+    from repro_torch.codec import transform as T
+    from repro_torch.core.knobs import FidelityOption
+    from repro_torch.kernels.dct8.ref import encode_inputs
+
+    raw = torch.from_numpy(first_frames).to(dev)
+    out = []
+    for name, sf_id in (("golden", "sf_g"), ("fast", "sf1")):
+        sf = vs.formats[sf_id]
+        frames = T.convert_fidelity(raw, FidelityOption(), sf.fidelity, spec)
+        out.append((name, frames.contiguous(), sf.coding.keyframe,
+                    sf.fidelity.quant_scale))
+    golden_qs = out[0][3]
+    out.append(("ragged", encode_inputs(13, spec.height, spec.width, 13,
+                                        dev), 5, golden_qs))
+    return out
+
+
+def encoder_row(torch, check, vs, spec, first_frames, launches,
+                dev) -> dict:
+    """K3's encoder form held against the stepped K3 + K1 route (equal) and
+    its plain version (K3's bound) on ``encoder_cases``, each mutant of
+    ``ref.ENCODE_MUTANTS`` failing that bound, timed at the golden and fast
+    shapes (CUDA events and the profiler) beside the stepped route, its
+    plain version and its bound; then one profiled ingest encode of a
+    segment into the fast SF.  Returns its ``kernels`` row."""
+    from repro_torch.core.knobs import FidelityOption
+    from repro_torch.kernels.dct8.dct8 import (dct8_dequantize,
+                                               dct8_encode_chunks,
+                                               dct8_quantize)
+    from repro_torch.kernels.dct8.ref import (ENCODE_MUTANTS,
+                                              dct8_encode_chunks_ref,
+                                              encode_chunks_stepped,
+                                              encode_mutant, k3_holds)
+
+    def stepped(f, k, qs):
+        return encode_chunks_stepped(f, k, qs, dct8_quantize, dct8_dequantize)
+
+    cases = encoder_cases(torch, vs, spec, first_frames, dev)
+    errs, timed = [], {}
+    for name, f, k, qs in cases:
+        got = dct8_encode_chunks(f, k, qs)
+        n_step = int((got != stepped(f, k, qs)).sum())
+        check(n_step == 0, f"K3 encoder form vs the stepped K3 + K1 route, "
+              f"{name} {tuple(f.shape)} k {k}: {n_step} of {got.numel()} "
+              f"symbols differ")
+        plain = dct8_encode_chunks_ref(f, k, qs)
+        ok, n_plain = k3_holds(got, plain)
+        errs.append(float((got.int() - plain.int()).abs().max()))
+        del plain
+        check(ok, f"K3 encoder form vs plain, {name}: {n_plain} of "
+              f"{got.numel()} symbols differ (at most 1e-6 by one)")
+        for mutant in ENCODE_MUTANTS:
+            held, n_bad = k3_holds(got, encode_mutant(mutant, f, k, qs))
+            if name == "ragged" or mutant == "prediction reset every frame":
+                check(not held, f"K3 encoder hold, {name}: the plain "
+                      f"version with the {mutant} differs in {n_bad} "
+                      f"symbols, so it fails")
+            else:
+                print(f"K3 encoder hold, {name}: the plain version with the "
+                      f"{mutant} differs in {n_bad} symbols", flush=True)
+        if name != "ragged":
+            timed[name] = (f, k, qs, got.numel())
+        del got
+    free_card(torch)
+
+    row = {"name": "dct8_encode_chunks", "route": "cuda",
+           "source": "src/repro_torch/csrc/dct8.cu",
+           "replaces": "src/repro/kernels/dct8/dct8.py:64",
+           "launches": launches.get("dct8_encode_chunks", 0),
+           "max_abs_err": max(errs)}
+    for name, (f, k, qs, n_sym) in timed.items():
+        nbytes = f.numel() + 2 * n_sym          # u8 in, int16 out
+        flops = 2 * n_sym / 64 * (2048 + 64)    # K3 and K1 a block
+        b_ms, b_by = bound_ms(nbytes, flops)
+        ms = time_ms(torch, lambda: dct8_encode_chunks(f, k, qs), 20)
+        dev_ms, by_kernel = kernel_ms(
+            torch, lambda: dct8_encode_chunks(f, k, qs), 10)
+        step_ms = time_ms(torch, lambda: stepped(f, k, qs), 3)
+        step_dev_ms, _ = kernel_ms(torch, lambda: stepped(f, k, qs), 2)
+        plain_ms = time_ms(torch, lambda: dct8_encode_chunks_ref(f, k, qs), 1)
+        print(f"K3 encoder form, {name} {tuple(f.shape)} k {k}: {ms:.4f} ms "
+              f"by CUDA events, {dev_ms:.4f} ms on the card (profiler: "
+              f"{by_kernel}); bound {b_ms:.4f} ms ({b_by}: "
+              f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP); the stepped "
+              f"route {step_ms:.3f} ms ({step_dev_ms:.3f} ms on the card); "
+              f"plain {plain_ms:.1f} ms", flush=True)
+        keys = ({"ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
+                 "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+                 "stepped_ms": step_ms, "stepped_device_ms": step_dev_ms}
+                if name == "golden" else
+                {"fast_ms": ms, "fast_device_ms": dev_ms,
+                 "fast_plain_ms": plain_ms, "fast_bound_ms": b_ms,
+                 "fast_stepped_ms": step_ms,
+                 "fast_stepped_device_ms": step_dev_ms})
+        row.update(keys)
+    del timed, cases
+    free_card(torch)
+
+    # one segment's ingest encode into the fast SF, under the profiler
+    sf = vs.formats["sf1"]
+    t0 = time.perf_counter()
+    busy, n_kernels, by_name = device_time(
+        torch, lambda: vs.encode_format(first_frames, FidelityOption(), sf))
+    wall = (time.perf_counter() - t0) * 1e3
+    print(f"profiled ingest encode of one segment into {sf.name()}: "
+          f"{wall:.1f} ms wall (profiler on), the card busy {busy:.3f} ms "
+          f"({100 * busy / wall:.2f}%), {n_kernels} kernels: " + "; ".join(
+              f"{n} {ms:.3f} ms x{c}" for n, ms, c in by_name), flush=True)
+    row["ingest_encode_busy_share"] = busy / wall
+    return row
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -1724,7 +1885,7 @@ def main() -> int:
     from repro_torch.kernels import build
     from repro_torch.kernels.dct8.dct8 import dct8_dequantize, dct8_quantize
     from repro_torch.kernels.dct8.ref import (dct8_dequantize_ref,
-                                              dct8_quantize_ref)
+                                              dct8_quantize_ref, k3_holds)
     from repro_torch.kernels.resize.resize import band, resize_bilinear
     from repro_torch.kernels.resize.ref import resize_ref
     from repro_torch.videostore.video_store import VideoStore
@@ -1770,6 +1931,11 @@ def main() -> int:
     check(len(sb) == 4 and all(spill == 0 for _, spill in sb.values()),
           f"K5's {len(sb)} scan_kernel builds (4 expected: xc f32 and bf16, "
           f"n 8 and 16) spill nothing")
+    enc = [(regs, spill) for name, entry, regs, spill, _ in built
+           if name == "dct8" and "encode_chunks_kernel" in entry]
+    check(len(enc) == 1 and enc[0][1] == 0,
+          f"K3's encoder form (encode_chunks_kernel) builds once and spills "
+          f"nothing: {enc} (registers, bytes spilled)")
 
     spec = IngestSpec(height=720, width=1280, fps=30, segment_seconds=4)
     cfg = smoke_config()
@@ -1785,6 +1951,7 @@ def main() -> int:
         first_frames = ingest_all(vs, SEGMENTS)
         torch.cuda.synchronize()
         t_ingest = time.perf_counter() - t0
+        in_ingest = build.LAUNCHES.snapshot()
         n_seg = SEGMENTS * len(STREAMS)
         raw_gb = n_seg * first_frames.nbytes / 1e9
         print(f"ingest: {n_seg} segments, {raw_gb:.2f} GB raw u8, "
@@ -1807,9 +1974,23 @@ def main() -> int:
         for query, res in run_queries(vs, cfg, SEGMENTS).items():
             print(f"query {query} warm (not counted): "
                   f"{res.measured_speed:.1f}x realtime", flush=True)
-        print(f"launches on the main path: {launches}", flush=True)
-        for name in ("dct8_quantize", "dct8_dequantize", "resize_bilinear"):
-            check(launches.get(name, 0) > 0, f"{name} launched on the main path")
+        print(f"launches on the main path: {launches} ({in_ingest} of them "
+              f"in ingest)", flush=True)
+        coded = sum(not sf.coding.bypass for sf in vs.formats.values())
+        check(launches.get("dct8_encode_chunks", 0) == n_seg * coded,
+              f"K3's encoder form launched once a segment and coded format "
+              f"on the main path: {launches.get('dct8_encode_chunks', 0)} "
+              f"({n_seg} x {coded} expected)")
+        check(launches.get("dct8_quantize", 0) == 0,
+              "the standalone K3 (dct8_quantize) launched 0 times on the "
+              "main path: the encoder runs K3's encoder form")
+        check(in_ingest.get("dct8_dequantize", 0) == 0
+              and launches.get("dct8_dequantize", 0) > 0,
+              f"K1 (dct8_dequantize) launched by the decoder only: "
+              f"{in_ingest.get('dct8_dequantize', 0)} in ingest, "
+              f"{launches.get('dct8_dequantize', 0)} on the main path")
+        check(launches.get("resize_bilinear", 0) > 0,
+              "resize_bilinear launched on the main path")
 
         # -- the stage phase: every item-producing stage on real frames -----
         runs = stage_runs(cfg)
@@ -1896,13 +2077,13 @@ def main() -> int:
         resid = torch.from_numpy(first_frames[:1]).to(dev).float() - 128.0
         qs = FidelityOption().quant_scale  # golden quality
         sym = dct8_quantize(resid, qs)
-        d = (sym.int() - dct8_quantize_ref(resid, qs).int()).abs()
-        n_diff = int((d > 0).sum())
-        check(int(d.max()) <= 1 and n_diff <= 1e-6 * d.numel(),
-              f"K3 dct8_quantize vs plain on {tuple(resid.shape)}: "
-              f"{n_diff} of {d.numel()} symbols differ")
+        want = dct8_quantize_ref(resid, qs)
+        ok, n_diff = k3_holds(sym, want)
+        check(ok, f"K3 dct8_quantize vs plain on {tuple(resid.shape)}: "
+              f"{n_diff} of {sym.numel()} symbols differ")
         n = resid.numel()
-        kernels.append(("dct8_quantize", float(d.max()),
+        kernels.append(("dct8_quantize",
+                        float((sym.int() - want.int()).abs().max()),
                         lambda: dct8_quantize(resid, qs),
                         lambda: dct8_quantize_ref(resid, qs), None,
                         bound_ms(n * 4 + n * 2, n / 64 * (2048 + 64)),
@@ -1964,6 +2145,16 @@ def main() -> int:
                 "plain_ms": time_ms(torch, plain, 3), "bound_ms": b_ms,
                 "bound_by": b_by,
                 "library_ms": None if lib is None else time_ms(torch, lib, 5)})
+        k3 = next(row for row in rows if row["name"] == "dct8_quantize")
+        k3["device_ms"] = kernel_ms(
+            torch, lambda: dct8_quantize(resid, FidelityOption().quant_scale),
+            20)[0]
+        print(f"K3 dct8_quantize at {tuple(resid.shape)}: {k3['ms']:.4f} ms "
+              f"by CUDA events, {k3['device_ms']:.4f} ms on the card "
+              f"(profiler)", flush=True)
+        rows.append(encoder_row(torch, check, vs, spec, first_frames,
+                                launches, dev))
+        rows[-1]["registers"] = enc[0][0] if enc else None
     finally:
         shutil.rmtree(work, ignore_errors=True)
     print(f"video path: {time.perf_counter() - t_start:.1f} s", flush=True)

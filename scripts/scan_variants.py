@@ -14,7 +14,8 @@ All are compiled together with the port's own ``nvcc`` flags into
 and left out.  Each build's ``scan_kernel`` registers and spills are
 printed from its ptxas report, with its launch geometry where it reports
 one (``mamba_scan.geometry``) and, with ``--sass``, the opcode mix of its
-``scan_kernel<bf16, 16>`` as compiled (``cuobjdump -sass``).
+``scan_kernel<bf16, 16>`` as compiled (``cuobjdump -sass``,
+``variants.sass_mix``).
 
 Each build is bound in turn into the port's wrapper (``mamba_scan``) and:
 
@@ -42,11 +43,10 @@ from __future__ import annotations
 import argparse
 import json
 import os
-import re
-import subprocess
 import sys
 
-from variants import bind, build_all, c_entry, in_turns, logger, variant_source
+from variants import (bind, build_all, c_entry, in_turns, logger, sass_mix,
+                      variant_source)
 
 #: the one ``load_row`` of mamba_scan.cu takes float4s; a lane of 2 states
 #: (4 lanes at n 8) needs a scalar copy
@@ -118,25 +118,6 @@ CASES = (("prefill", (4, 2048, 8192, 16), "bfloat16", "init", False),
           True))
 PREFILL = (4, 2048, 8192, 16)
 DECODE = (4, 1, 8192, 16)
-
-
-def sass_mix(tool: str, lib: str, entry: str) -> dict:
-    """Opcodes (without modifiers) of kernel ``entry`` in the SASS of the
-    library ``lib`` by ``tool`` (``cuobjdump -sass``), counted as compiled:
-    the static mix, the unrolled chunk's steps included once each."""
-    out = subprocess.run([tool, "-sass", lib], capture_output=True,
-                         text=True).stdout
-    counts: dict[str, int] = {}
-    inside = False
-    for line in out.splitlines():
-        if "Function :" in line:
-            inside = entry in line
-        elif inside:
-            m = re.search(r"/\*[0-9a-f]{4}\*/\s+(?:@!?U?P\w+\s+)?([A-Z0-9_]+)",
-                          line)
-            if m:
-                counts[m[1]] = counts.get(m[1], 0) + 1
-    return dict(sorted(counts.items(), key=lambda kv: -kv[1]))
 
 
 def main() -> int:

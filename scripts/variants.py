@@ -1,14 +1,16 @@
 """What the kernel-variant scripts (``prefill_variants.py``,
-``scan_variants.py``) share: variants of a CUDA source made by text
-replacement, built together with the port's own ``nvcc`` flags, bound in
-turn into the port's wrapper in place of its loaded C entry, and measured
-in turns on one card.  Imported by those scripts, not run.
+``scan_variants.py``, ``encode_variants.py``) share: variants of a CUDA
+source made by text replacement, built together with the port's own
+``nvcc`` flags, bound in turn into the port's wrapper in place of its
+loaded C entry, measured in turns on one card, and their SASS opcode mix.
+Imported by those scripts, not run.
 """
 
 from __future__ import annotations
 
 import ctypes
 import os
+import re
 import subprocess
 import sys
 
@@ -90,3 +92,22 @@ def in_turns(names: list, rounds: int, measure) -> dict:
         for name in (names if rnd % 2 == 0 else names[::-1]):
             out[name].append(measure(name))
     return out
+
+
+def sass_mix(tool: str, lib: str, entry: str) -> dict:
+    """Opcodes (without modifiers) of kernel ``entry`` in the SASS of the
+    library ``lib`` by ``tool`` (``cuobjdump -sass``), counted as compiled:
+    the static mix, the unrolled chunk's steps included once each."""
+    out = subprocess.run([tool, "-sass", lib], capture_output=True,
+                         text=True).stdout
+    counts: dict[str, int] = {}
+    inside = False
+    for line in out.splitlines():
+        if "Function :" in line:
+            inside = entry in line
+        elif inside:
+            m = re.search(r"/\*[0-9a-f]{4}\*/\s+(?:@!?U?P\w+\s+)?([A-Z0-9_]+)",
+                          line)
+            if m:
+                counts[m[1]] = counts.get(m[1], 0) + 1
+    return dict(sorted(counts.items(), key=lambda kv: -kv[1]))

@@ -14,15 +14,15 @@ or v2 (one stream per chunk, lengths in ``"spans"``).  Either package
 decodes the other's blobs.
 
 The transforms run on the device of the frames (encode) or on the caller's
-``device`` (decode): on the card through the CUDA kernels K3 (forward DCT +
-quantize) and K1 (dequantize + IDCT), on the CPU through their plain
-versions.  Encoding steps every chunk of a segment together, one frame
-position at a time; decoding reconstructs every wanted chunk's residuals in
-one K1 launch, then runs the add+clip DPCM scan (``_residuals_scan``,
-plain tensor ops) over them.  Only symbols and blob bytes cross to the
-host.  The port's float sums run in another order than XLA's, so its
-symbols and frames agree with the reference's within stated bounds (see
-``tests/test_torch_codec.py``), not bit for bit.
+``device`` (decode): on the card through the CUDA kernels, on the CPU
+through their plain versions.  Encoding codes every chunk of a segment in
+one launch of K3's encoder form (forward DCT + quantize, dequantize + IDCT
+and the DPCM prediction, all on the card); decoding reconstructs every
+wanted chunk's residuals in one K1 launch, then runs the add+clip DPCM scan
+(``_residuals_scan``, plain tensor ops) over them.  Only symbols and blob
+bytes cross to the host.  The port's float sums run in another order than
+XLA's, so its symbols and frames agree with the reference's within stated
+bounds (see ``tests/test_torch_codec.py``), not bit for bit.
 """
 
 from __future__ import annotations
@@ -40,7 +40,7 @@ except ImportError:  # pragma: no cover - exercised on bare interpreters
     zstandard = None
 
 from ..device import resolve_device
-from ..kernels.dct8.ops import dct_dequantize, dct_quantize
+from ..kernels.dct8.ops import dct_dequantize, dct_encode_chunks
 from ..obs.trace import span as _span
 from . import transform as T
 
@@ -79,25 +79,12 @@ def _encode_chunks(frames_u8: torch.Tensor, k: int,
     (C, k_eff, hb, wb, 8, 8) int16, chunk c holding frames ``c*k ..``.
 
     The reference's ``_encode_chunk`` scans one chunk's frames; chunks are
-    independent, so here step ``t`` codes frame ``t`` of every chunk in one
-    K3 + K1 launch pair.  A short tail chunk repeats its last frame (DPCM
-    is causal, so the padding cannot change the real frames' symbols)."""
-    n, h, w = frames_u8.shape
-    ke = _k_eff(k, n)
-    starts = np.arange(0, n, k)
-    last = np.minimum(starts + k, n) - 1
-    dev = frames_u8.device
-    out = torch.empty((len(starts), ke, h // T.BLOCK, w // T.BLOCK,
-                       T.BLOCK, T.BLOCK), dtype=torch.int16, device=dev)
-    pred = torch.full((len(starts), h, w), 128.0, dtype=torch.float32,
-                      device=dev)
-    for t in range(ke):
-        rows = torch.from_numpy(np.minimum(starts + t, last)).to(dev)
-        resid = (frames_u8[rows].to(torch.float32) - pred).contiguous()
-        sym = dct_quantize(resid, quant_scale)
-        pred = torch.clamp(pred + dct_dequantize(sym, quant_scale), 0.0, 255.0)
-        out[:, t] = sym
-    return out
+    independent, so on the card one launch of K3's encoder form codes every
+    chunk, and on the CPU its plain version steps every chunk together, one
+    frame position at a time.  A short tail chunk repeats its last frame
+    (DPCM is causal, so the padding cannot change the real frames'
+    symbols)."""
+    return dct_encode_chunks(frames_u8.contiguous(), k, quant_scale)
 
 
 def _chunk_residuals(symbols: torch.Tensor, quant_scale: float) -> torch.Tensor:

@@ -1,6 +1,7 @@
 """The port's CUDA kernels (K1 dct8_dequantize, K2 resize_bilinear,
-K3 dct8_quantize, K4 flash_attention, K5 mamba_scan, K6 rglru_scan)
-against their plain PyTorch versions.
+K3 dct8_quantize and its encoder form dct8_encode_chunks, K4
+flash_attention, K5 mamba_scan, K6 rglru_scan) against their plain PyTorch
+versions.
 
 This file imports neither ``jax`` nor ``repro``, so it also runs on a GPU
 host that has PyTorch but no JAX.  On the CPU it checks what the kernels
@@ -43,7 +44,13 @@ from repro_torch.kernels.attention.ref import (attention_ref, hold_ratio,
 from repro_torch.kernels.build import LAUNCHES
 from repro_torch.kernels.dct8 import dct8 as K13
 from repro_torch.kernels.dct8 import ops as dct_ops
-from repro_torch.kernels.dct8.ref import dct8_dequantize_ref, dct8_quantize_ref
+from repro_torch.kernels.dct8.ref import (ENCODE_MUTANTS,
+                                          dct8_dequantize_ref,
+                                          dct8_encode_chunks_ref,
+                                          dct8_quantize_ref,
+                                          encode_chunks_stepped,
+                                          encode_inputs, encode_mutant,
+                                          k3_holds)
 from repro_torch.kernels.mamba_scan import mamba_scan as K5
 from repro_torch.kernels.mamba_scan import ops as scan_ops
 from repro_torch.kernels.mamba_scan.ref import (MUTANTS as SCAN_MUTANTS,
@@ -79,10 +86,12 @@ def test_wrappers_take_only_cuda_tensors_and_ops_route_by_device():
         K13.dct8_dequantize(torch.zeros(1, 2, 3, 8, 8, dtype=torch.int16), 2.0)
     with pytest.raises(ValueError, match="CUDA"):
         K2.resize_bilinear(x, 8, 12)
-    sym = dct_ops.dct_quantize(x, 2.0)
-    assert torch.equal(sym, dct8_quantize_ref(x, 2.0))
+    sym = dct8_quantize_ref(x, 2.0)
     assert torch.equal(dct_ops.dct_dequantize(sym, 2.0),
                        dct8_dequantize_ref(sym, 2.0))
+    f = x.to(torch.uint8)
+    assert torch.equal(dct_ops.dct_encode_chunks(f, 1, 2.0),
+                       dct8_encode_chunks_ref(f, 1, 2.0))
     assert torch.equal(resize_ops.resize(x, 8, 12), resize_ref(x, 8, 12))
 
 
@@ -692,11 +701,36 @@ def test_dct8_kernels_match_plain_on_card(cuda, shape, qs):
     g = torch.Generator().manual_seed(7)
     x = (torch.randn(shape, generator=g) * 40).round().to(cuda)
     sym = K13.dct8_quantize(x, qs)
-    d = (sym.int() - dct8_quantize_ref(x, qs).int()).abs()
-    assert int(d.max()) <= 1 and int((d > 0).sum()) <= 1e-6 * d.numel()
+    assert k3_holds(sym, dct8_quantize_ref(x, qs))[0]
     torch.testing.assert_close(K13.dct8_dequantize(sym, qs),
                                dct8_dequantize_ref(sym, qs), atol=1e-3,
                                rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,h,w,k", [(13, 48, 64, 5), (6, 16, 24, 1),
+                                     (60, 544, 960, 10),
+                                     (120, 720, 1280, 250)])
+def test_encoder_form_equals_stepped_route_on_card(cuda, n, h, w, k):
+    """K3's encoder form runs K3's and K1's row bodies, so its symbols
+    equal the stepped route's (the standalone K3 and K1 kernels, torch's
+    add and clamp) symbol for symbol; against the plain version it holds
+    K3's bound.  The shapes: a ragged tail, every frame intra, the fast
+    and the golden segment."""
+    f = encode_inputs(n, h, w, seed=n + k, device=cuda)
+    got = K13.dct8_encode_chunks(f, k, 2.0)
+    stepped = encode_chunks_stepped(f, k, 2.0, K13.dct8_quantize,
+                                    K13.dct8_dequantize)
+    assert int((got != stepped).sum()) == 0
+    assert k3_holds(got, dct8_encode_chunks_ref(f, k, 2.0))[0]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mutant", ENCODE_MUTANTS)
+def test_encoder_form_differs_from_each_mutant_on_card(cuda, mutant):
+    f = encode_inputs(13, 48, 64, seed=5, device=cuda)
+    got = K13.dct8_encode_chunks(f, 5, 2.0)
+    assert not k3_holds(got, encode_mutant(mutant, f, 5, 2.0))[0]
 
 
 @pytest.mark.cuda
@@ -710,9 +744,10 @@ def test_resize_kernel_matches_plain_on_card(cuda, h1, w1, h2, w2):
 
 @pytest.mark.cuda
 def test_codec_on_card_equals_plain_path(cuda):
-    """A segment encoded on the card through K3/K1 gives the CPU plain
-    path's blob, and decodes on the card (K1) to the plain decode, while
-    the launch counters record the kernels."""
+    """A segment encoded on the card through K3's encoder form gives the
+    CPU plain path's blob, and decodes on the card (K1) to the plain
+    decode, while the launch counters record the kernels: one encoder
+    launch, no standalone K3, one K1 launch (the decoder's)."""
     rng = np.random.default_rng(3)
     f = (120 + rng.normal(0, 20, (13, 48, 64))).clip(0, 255).astype(np.uint8)
     LAUNCHES.reset()
@@ -724,7 +759,8 @@ def test_codec_on_card_equals_plain_path(cuda):
     assert got.is_cuda
     assert torch.equal(got.cpu(), S.decode_segment(blob, want, device="cpu"))
     n = LAUNCHES.snapshot()
-    assert n["dct8_quantize"] == 5 and n["dct8_dequantize"] == 5 + 1
+    assert n["dct8_encode_chunks"] == 1
+    assert n.get("dct8_quantize", 0) == 0 and n["dct8_dequantize"] == 1
 
 
 @pytest.mark.cuda
