@@ -35,7 +35,11 @@ Then it checks what came out:
 * each kernel against its plain PyTorch version on the card, at the
   shapes the main path gives it: K3's symbols on identical residual input
   (equal but for at most 1e-6 of them, by one), K1 at atol 1e-3 (the
-  reference's Pallas-vs-jnp bound), K2 at atol 1e-3 on 0-255 data;
+  reference's Pallas-vs-jnp bound), K2 at atol 1e-3 on 0-255 data
+  (ingest's transcode to the fast SF's grid, NN's 2/3 pyramid level of
+  the golden grid and 300 of OCR's plate patches to 9 x 26), timed by
+  CUDA events and by the profiler, its four ``resize_kernel<TW>`` builds
+  spilling nothing;
 * K3's encoder form on a golden segment (120 x 720 x 1280, keyframe 250),
   the same segment transcoded to the fast SF (60 x 544 x 960, keyframe
   10) and a ragged case (13 frames in chunks of 5, squares whose edges
@@ -1878,6 +1882,7 @@ def main() -> int:
         return 2
 
     from repro_torch.analytics.accuracy import f1_score
+    from repro_torch.analytics.operators import NN
     from repro_torch.codec import segment as S
     from repro_torch.codec import transform as T
     from repro_torch.configs import get_config
@@ -1931,6 +1936,14 @@ def main() -> int:
     check(len(sb) == 4 and all(spill == 0 for _, spill in sb.values()),
           f"K5's {len(sb)} scan_kernel builds (4 expected: xc f32 and bf16, "
           f"n 8 and 16) spill nothing")
+    rk = {entry: (regs, spill) for name, entry, regs, spill, _ in built
+          if name == "resize" and "resize_kernel" in entry}
+    print("ptxas K2 resize_kernel<TW>: " + "; ".join(
+        f"{entry} {regs} registers, {spill} bytes spilled"
+        for entry, (regs, spill) in sorted(rk.items())), flush=True)
+    check(len(rk) == 4 and all(spill == 0 for _, spill in rk.values()),
+          f"K2's {len(rk)} resize_kernel builds (4 expected: tiles of 128, "
+          f"64, 32 and 16 columns) spill nothing")
     enc = [(regs, spill) for name, entry, regs, spill, _ in built
            if name == "dct8" and "encode_chunks_kernel" in entry]
     check(len(enc) == 1 and enc[0][1] == 0,
@@ -2124,6 +2137,26 @@ def main() -> int:
             align_corners=False)[:, 0]).abs().max())
         print(f"K2 vs F.interpolate(antialias=True): max |d| {lib_err:.3g}",
               flush=True)
+        # ... and at NN's 2/3 pyramid level of the golden grid and on OCR's
+        # plate patches (300 of them, where OCR cuts them at 720p) to 9 x 26
+        nn_h, nn_w = int(h1 * NN.scales[1]), int(w1 * NN.scales[1])
+        g = torch.Generator(device=dev).manual_seed(2)
+        ph, pw = max(4, round(9 * h1 / 96)), max(8, round(26 * w1 / 160))
+        at = torch.stack([torch.randint(0, nf, (300,), generator=g,
+                                        device=dev),
+                          torch.randint(0, h1 - ph, (300,), generator=g,
+                                        device=dev),
+                          torch.randint(0, w1 - pw, (300,), generator=g,
+                                        device=dev)], 1).tolist()
+        patches = torch.stack([x[t, r:r + ph, c:c + pw] for t, r, c in at])
+        for what, src, hw in (("NN's 2/3 level", x, (nn_h, nn_w)),
+                              ("OCR's plate patches", patches, (9, 26))):
+            err = float((resize_bilinear(src, *hw)
+                         - resize_ref(src, *hw)).abs().max())
+            check(err <= 1e-3, f"K2 resize_bilinear vs plain at {what}, "
+                  f"{tuple(src.shape)} -> {hw}: max |d| {err:.3g}")
+            err2 = max(err2, err)
+        del patches
         ty, tx = band(h2, h1)[1].shape[1], band(w2, w1)[1].shape[1]
         kernels.append((
             "resize_bilinear", err2, lambda: resize_bilinear(x, h2, w2),
@@ -2145,6 +2178,16 @@ def main() -> int:
                 "plain_ms": time_ms(torch, plain, 3), "bound_ms": b_ms,
                 "bound_by": b_by,
                 "library_ms": None if lib is None else time_ms(torch, lib, 5)})
+        k2 = next(row for row in rows if row["name"] == "resize_bilinear")
+        k2["device_ms"] = kernel_ms(
+            torch, lambda: resize_bilinear(x, h2, w2), 20)[0]
+        k2["registers"] = next((regs for entry, (regs, _) in rk.items()
+                                if "resize_kernelILi128E" in entry), None)
+        print(f"K2 resize_bilinear at {tuple(x.shape)} -> {(h2, w2)}: "
+              f"{k2['ms']:.4f} ms by CUDA events, {k2['device_ms']:.4f} ms "
+              f"on the card (profiler), bound {k2['bound_ms']:.4f} ms",
+              flush=True)
+        check(k2["device_ms"] > 0, "K2's calls show in a profiler trace")
         k3 = next(row for row in rows if row["name"] == "dct8_quantize")
         k3["device_ms"] = kernel_ms(
             torch, lambda: dct8_quantize(resid, FidelityOption().quant_scale),

@@ -8,7 +8,8 @@ computed the way ``jax.image.resize(..., "bilinear")`` computes it under
 XLA's arithmetic), so the port matches that function and not only the
 reference kernel's float64 weights.  The
 kernel takes the band of each matrix (``band``): per output row a start
-index and at most ``2·ceil(support)+1`` weights.
+index and at most ``2·ceil(support)+1`` weights.  ``tile_plan`` is the
+host's twin of the kernel's tile plan (``csrc/resize.cu::resize_plan``).
 """
 
 from __future__ import annotations
@@ -89,6 +90,53 @@ def band(n_out: int, n_in: int) -> tuple[np.ndarray, np.ndarray]:
     return start, np.ascontiguousarray(weights)
 
 
+#: ``csrc/resize.cu``'s tile: output rows, output columns before narrowing,
+#: threads a block; shared memory a block takes without opting in, and most
+TILE_ROWS, TILE_COLS, THREADS = 16, 128, 256
+SMEM_DEFAULT, SMEM_MAX = 48 * 1024, 232448
+
+
+def column_span(n_out: int, n_in: int, taps: int, tw: int) -> int:
+    """Input columns of the widest column band ``[start[j0], start[j_last]
+    + taps)`` of a tile of ``tw`` outputs of ``band(n_out, n_in)``:
+    ``start`` rises by at most ``ceil(d·n_in/n_out)`` over ``d`` outputs,
+    plus one for its float32 rounding."""
+    d = min(tw, n_out) - 1
+    return min(n_in, -(-d * n_in // n_out) + taps + 1)
+
+
+def tile_plan(n_out: int, n_in: int, taps: int) -> tuple[int, int, int]:
+    """The tile K2 launches for an output row of ``n_out`` columns from
+    ``n_in`` with ``taps`` taps, as ``csrc/resize.cu::resize_plan`` plans
+    it: ``(tw, span, smem)``, the output columns of a tile, the input
+    columns of its widest band and the block's shared memory in bytes
+    (``TILE_ROWS`` rows of ``span`` float32 sums).  ``tw`` halves from
+    ``TILE_COLS`` while the band overflows ``SMEM_DEFAULT``, down to
+    ``THREADS // TILE_ROWS``; past that the kernel opts in to more, up to
+    ``SMEM_MAX``."""
+    tw = TILE_COLS
+    while True:
+        span = column_span(n_out, n_in, taps, tw)
+        smem = TILE_ROWS * span * 4
+        if smem <= SMEM_DEFAULT or tw == THREADS // TILE_ROWS:
+            return tw, span, smem
+        tw //= 2
+
+
+def kernel_tile_plan(n_out: int, n_in: int, taps: int) -> tuple[int, int,
+                                                                 int]:
+    """``tile_plan`` as the built ``csrc/resize.cu`` computes it (its
+    ``resize_plan``), so that a test holds the two twins equal; compiles
+    the library on first use."""
+    fn = LIBRARIES.get("resize").resize_plan
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                   ctypes.POINTER(ctypes.c_longlong)]
+    fn.restype = ctypes.c_int
+    plan = (ctypes.c_longlong * 3)()
+    fn(n_in, n_out, taps, plan)
+    return tuple(plan)
+
+
 @functools.cache
 def _band_on(n_out: int, n_in: int, device: torch.device):
     start, weights = band(n_out, n_in)
@@ -96,12 +144,17 @@ def _band_on(n_out: int, n_in: int, device: torch.device):
             torch.from_numpy(weights).to(device), weights.shape[1])
 
 
+_P, _I32 = ctypes.c_void_p, ctypes.c_int
+#: the C entry's arguments: x, out, n, h1, w1, h2, w2, y0, wy, ty, x0, wx,
+#: tx, stream
+_ARGTYPES = [_P, _P, ctypes.c_longlong, _I32, _I32, _I32, _I32, _P, _P, _I32,
+             _P, _P, _I32, _P]
+
+
 @functools.cache
 def _kernel():
     fn = LIBRARIES.get("resize").resize_bilinear
-    ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    fn.argtypes = [ptr, ptr, i64, i32, i32, i32, i32, ptr, ptr, i32, ptr,
-                   ptr, i32, ptr]
+    fn.argtypes = _ARGTYPES
     fn.restype = ctypes.c_int
     return fn
 

@@ -75,6 +75,25 @@ RESIZES = [(96, 160, 72, 120), (96, 160, 64, 106), (72, 120, 56, 88),
            (64, 64, 14, 14), (9, 26, 9, 26), (720, 1280, 544, 960),
            (544, 960, 96, 176), (68, 208, 9, 26)]
 
+# K2 cases (n, h1, w1, h2, w2) beyond RESIZES, where its tiles are ragged,
+# narrowed or wide
+RESIZE_EDGES = [
+    (3, 50, 300, 37, 203),     # ragged last tiles in both axes
+    (2, 9, 26, 40, 150),       # an upscale, ragged in both axes
+    (1, 544, 960, 96, 176),    # one frame, bands of 12 and 11 taps
+    (1, 960, 544, 176, 96),    # the same bands the other way round
+    (500, 68, 208, 9, 26),     # several hundred plate patches
+    (4, 64, 2000, 20, 100),    # a band that narrows the tile
+    (2, 40, 5000, 8, 90)]      # one that opts in to more shared memory
+
+# (n_in, n_out) of one axis beyond RESIZES for K2's tile plan: the widest
+# bands the port calls (960 -> 176: 11 taps, 544 -> 96: 12), upscales, one
+# input or output, a 2/3 pyramid level, bands that narrow the tile (2000 ->
+# 100) and one that opts in to more shared memory (5000 -> 90)
+PLAN_PAIRS = [(960, 176), (544, 96), (9, 26), (26, 160), (60, 161),
+              (1, 7), (7, 1), (1280, 1), (1280, 853), (1279, 640),
+              (2000, 100), (5000, 90), (3840, 211)]
+
 
 def test_wrappers_take_only_cuda_tensors_and_ops_route_by_device():
     """A wrapper never falls back: a CPU tensor is refused; the dispatch in
@@ -123,6 +142,74 @@ def test_resize_band_reproduces_dense_weights(h1, w1, h2, w2):
         out += wx[None, None, :, b] * v
     np.testing.assert_allclose(
         out, resize_ref(torch.from_numpy(x), h2, w2).numpy(), atol=1e-3)
+
+
+def _check_tiles(start, taps, width, span):
+    """``start`` (a band's starts) is non-decreasing, and each tile of
+    ``width`` outputs finds every tap of every output in the ``span``
+    inputs from its first output's start."""
+    assert (np.diff(start) >= 0).all()
+    for j0 in range(0, len(start), width):
+        tile = start[j0:j0 + width]
+        assert tile.min() == start[j0]
+        assert tile.max() + taps - start[j0] <= span
+
+
+def _check_tile_plan(n_out, n_in):
+    """K2's column tile over ``band(n_out, n_in)``: it covers every tap,
+    and its shared memory is its rows of sums and within the block's
+    most; above the default only where the tile is at its narrowest."""
+    start, wts = K2.band(n_out, n_in)
+    tw, span, smem = K2.tile_plan(n_out, n_in, wts.shape[1])
+    _check_tiles(start, wts.shape[1], tw, span)
+    assert smem == K2.TILE_ROWS * span * 4 <= K2.SMEM_MAX
+    assert smem <= K2.SMEM_DEFAULT or tw == K2.THREADS // K2.TILE_ROWS
+    return tw, smem
+
+
+@pytest.mark.parametrize("h1,w1,h2,w2", RESIZES)
+def test_resize_tile_plan_covers_every_tap(h1, w1, h2, w2):
+    """At every shape the port calls, K2's tiles cover their taps: a tile's
+    rows read the input rows from its first row's start, its columns'
+    sums fit the planned span, and the block's shared memory fits the
+    default 48 KB, so no launch opts in to more."""
+    y0, wy = K2.band(h2, h1)
+    _check_tiles(y0, wy.shape[1], K2.TILE_ROWS,
+                 y0[-1] + wy.shape[1] - y0[0])
+    _, smem = _check_tile_plan(w2, w1)
+    assert smem <= K2.SMEM_DEFAULT
+
+
+@pytest.mark.parametrize("n_in,n_out", PLAN_PAIRS)
+def test_resize_tile_plan_holds_beyond_the_port_shapes(n_in, n_out):
+    """The plan's span bounds the band's rise at any (n_in, n_out) pair:
+    downscales to 1/55, upscales, single rows and columns, and bands that
+    narrow the tile or opt in to more shared memory."""
+    tw, smem = _check_tile_plan(n_out, n_in)
+    if (n_in, n_out) == (2000, 100):
+        assert tw < K2.TILE_COLS and smem <= K2.SMEM_DEFAULT
+    if (n_in, n_out) == (5000, 90):
+        assert smem > K2.SMEM_DEFAULT
+
+
+def test_resize_tile_constants_are_the_sources():
+    """``tile_plan``'s constants are those ``csrc/resize.cu`` is built
+    with."""
+    import os
+    import re
+
+    from repro_torch.kernels import build
+    with open(os.path.join(build.CSRC, "resize.cu")) as f:
+        src = f.read()
+
+    def const(name):
+        expr = re.search(rf"constexpr int {name} = ([^;]+);", src)[1]
+        return math.prod(int(t) for t in expr.split("*"))
+
+    assert (const("kTH"), const("kTW"), const("kThreads")) == (
+        K2.TILE_ROWS, K2.TILE_COLS, K2.THREADS)
+    assert (const("kSmemDefault"), const("kSmemMax")) == (
+        K2.SMEM_DEFAULT, K2.SMEM_MAX)
 
 
 def _scan_inputs(bsz, s, inner, n, dtype=torch.float32, seed=0,
@@ -740,6 +827,31 @@ def test_resize_kernel_matches_plain_on_card(cuda, h1, w1, h2, w2):
     x = (torch.rand((3, h1, w1), generator=g) * 255).to(cuda)
     torch.testing.assert_close(K2.resize_bilinear(x, h2, w2),
                                resize_ref(x, h2, w2), atol=1e-3, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,h1,w1,h2,w2", RESIZE_EDGES)
+def test_resize_kernel_edges_on_card(cuda, n, h1, w1, h2, w2):
+    """K2 within its 1e-3 of the plain version where its tiles are ragged,
+    narrowed or wide, in exactly one launch a call."""
+    g = torch.Generator().manual_seed(n + w1)
+    x = (torch.rand((n, h1, w1), generator=g) * 255).to(cuda)
+    LAUNCHES.reset()
+    got = K2.resize_bilinear(x, h2, w2)
+    assert LAUNCHES.snapshot() == {"resize_bilinear": 1}
+    torch.testing.assert_close(got, resize_ref(x, h2, w2), atol=1e-3,
+                               rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_in,n_out", PLAN_PAIRS + [
+    (w1, w2) for h1, w1, h2, w2 in RESIZES])
+def test_resize_tile_plan_is_the_kernels_on_card(cuda, n_in, n_out):
+    """``tile_plan`` (held on the CPU) is the plan the built kernel
+    launches with."""
+    taps = K2.band(n_out, n_in)[1].shape[1]
+    assert K2.kernel_tile_plan(n_out, n_in, taps) == K2.tile_plan(
+        n_out, n_in, taps)
 
 
 @pytest.mark.cuda
