@@ -113,21 +113,30 @@ width and depth (38 layers: 26 RG-LRU and 12 local attention, d_model
 ``generate`` prefills a batch of 2 random 4096-token prompts (longer than
 the window, so the prefill's window masks and the ring buffers wrap on the
 first decode step) and decodes 32 greedy tokens, after one untimed
-warm-up.  K6 (rglru_scan) must launch 26 times and K4 12 times for the
-prefill and for each serve step.  Then, with f32 weights, batch 1 and a
-2088-token prompt, it holds a 2080-token prefill + 8 decode steps against
-the full forward and the kernel route against the same model with K6's
-and K4's plain versions bound in their place (1e-3 of the largest
-|logit|, 8 greedy tokens equal); K6 against its plain version at one
-layer's prefill shape (2, 4096, 4096) and at S 1 from a state (within
-2^-20 of the largest |h|); and K4 against its plain version with the
-window at head_dim 256 (2, 4096, 16 over 1, 256) and in its decode form
-over a full ring, element by element within ``ref.HOLD``, in bf16 and in
-f32.  K4 with the window is timed beside ``F.scaled_dot_product_attention``
-with an explicit banded mask; no single PyTorch call computes K6.  K6 is
-timed at the prefill shape and at the decode shape (2, 1, 4096) from a
-state, there by CUDA events over back-to-back calls and by the profiler,
-beside its bytes bound.
+warm-up.  K6's gated form (rglru_gated_scan: a and b formed in registers
+from the gates) must launch 26 times, the standalone K6 (rglru_scan)
+never, and K4 12 times for the prefill and for each serve step.  Then,
+with f32 weights, batch 1 and a 2088-token prompt, it holds a 2080-token
+prefill + 8 decode steps against the full forward and the kernel route
+against the same model with K6's gated form's and K4's plain versions
+bound in their place (1e-3 of the largest |logit|, 8 greedy tokens
+equal); K6 against its plain version at one layer's prefill shape (2,
+4096, 4096) and at S 1 from a state (within 2^-20 of the largest |h|);
+K6's gated form at the same shapes, in bf16 and f32 gates, against its
+plain version (the same 2^-20) and element by element against the
+stepped route it replaced (PyTorch's ops forming a and b, then K6: the
+elements that differ are printed, 0 expected), each of
+``ref.GATED_MUTANTS`` failing that hold; and K4 against its plain
+version with the window at head_dim 256 (2, 4096, 16 over 1, 256) and in
+its decode form over a full ring, element by element within
+``ref.HOLD``, in bf16 and in f32.  K4 with the window is timed beside
+``F.scaled_dot_product_attention`` with an explicit banded mask; no
+single PyTorch call computes K6.  Both
+forms of K6 are timed at the prefill shape and at the decode shape (2, 1,
+4096) from a state, by CUDA events over back-to-back calls and by the
+profiler, beside their bytes bounds; the gated form also beside the
+stepped route.  The build prints the registers of K6's three
+``scan_kernel`` instances and checks that none spills.
 
 The audio phase encodes with ``hubert-xlarge`` at its published width and
 depth (48 layers, d_model 1280, 16 heads over 16 of head_dim 80, GeLU d_ff
@@ -458,6 +467,37 @@ def scan_builds(built: list[tuple]) -> dict:
     return out
 
 
+def lru_builds(built: list[tuple]) -> dict:
+    """``ptxas_builds``' ``scan_kernel<F>`` instances of rglru.cu (the
+    form from the mangled name): form -> (registers, bytes spilled)."""
+    out = {}
+    for name, entry, regs, spill, _ in built:
+        if name == "rglru" and "scan_kernel" in entry:
+            form = ("standalone" if "Stepped" in entry else
+                    "gated bf16" if "bfloat16" in entry else "gated f32")
+            out[form] = (regs, spill)
+    return out
+
+
+def lru_gated_inputs(torch, bsz, s, w, dtype, dev, seed, with_h0=False):
+    """K6's gated form's inputs as the RG-LRU mixer gives them: r and i
+    sigmoids and xc a conv output, in ``dtype``; ``a_param`` float32
+    spread around its initial value, every 7th column above softplus's
+    threshold of 20 and every 11th from the 4th at -30 (a rounds to 1, so
+    1 - a² meets the 1e-12 floor); optionally a state h0."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=dev)
+
+    r, i = (torch.sigmoid(1.5 * randn(bsz, s, w)).to(dtype) for _ in "ri")
+    xc = randn(bsz, s, w).to(dtype)
+    a_param = 0.5 + 2.0 * randn(w)
+    a_param[::7] = 25.0
+    a_param[3::11] = -30.0
+    return r, i, xc, a_param, (randn(bsz, w) if with_h0 else None)
+
+
 def scan_inputs(torch, bsz, s, inner, n, x_dtype, dev, seed, with_h0=False,
                 a_kind="init"):
     """K5's inputs as the Mamba mixer gives them on the card: float32
@@ -488,23 +528,30 @@ def scan_inputs(torch, bsz, s, inner, n, x_dtype, dev, seed, with_h0=False,
                                       else None)
 
 
-def device_time(torch, fn) -> tuple[float, int, list]:
+def device_time(torch, fn, warmup=False) -> tuple[float, int, list]:
     """Runs ``fn()`` once under ``torch.profiler``; returns the time the
     card was busy with kernels, in ms (the union of the kernels'
     intervals), the number of kernels, and every kernel name as (name, ms,
     launches), costliest first.  (0.0, 0, []) when the trace holds no
-    kernel."""
+    kernel.  A trace misses the kernels of its first few calls; with
+    ``warmup`` the profiler runs ``fn()`` once untraced (its schedule's
+    warm-up step) and traces the second run."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1)
+                 if warmup else None) as prof:
+        for _ in range(2 if warmup else 1):
+            fn()
+            torch.cuda.synchronize()
+            if warmup:
+                prof.step()
     kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA
                and e.time_range.end > e.time_range.start
-               and not e.name.startswith("Command Buffer Full")]
+               and not e.name.startswith(("Command Buffer Full",
+                                          "ProfilerStep"))]
     busy, end = 0.0, float("-inf")
     for e in sorted(kernels, key=lambda e: e.time_range.start):
         start = max(e.time_range.start, end)
@@ -842,19 +889,33 @@ def kernel_ms(torch, fn, calls=20) -> tuple[float, dict]:
     """The card's kernel time per call of ``fn()`` (already warm) over
     ``calls`` back-to-back calls under the profiler (``device_time``):
     each kernel's mean time times its launches a call, summed, and by name
-    (launches a call, ms a launch).  Launches a call are rounded: the
-    trace may miss a window's first kernel.  A trace that comes back
-    empty, or with too few kernels to count one a call, is taken again,
-    up to 3 windows in all; the time is 0.0 if none counts one."""
+    (launches a call, ms a launch), after an untraced warm-up window.
+    Launches a call are rounded.  Every kernel these calls launch runs in
+    each call, so a window is short when the trace shows a kernel fewer
+    times than there were calls, or holds fewer kernels than the port's
+    wrappers counted (``LAUNCHES``) over the same calls; a short window is
+    printed and taken again, up to 3 in all.  If all three are short, the
+    last is counted with each kernel it shows at least once a call.  The
+    time is 0.0 if its trace holds no kernel."""
+    from repro_torch.kernels import build
+
     total, per_call = 0.0, {}
-    for _ in range(3):
-        _, _, by_name = device_time(
-            torch, lambda: [fn() for _ in range(calls)])
-        per_call = {name: (round(n / calls), ms / n)
+    for window in range(1, 4):
+        before = sum(build.LAUNCHES.snapshot().values())
+        _, n_kernels, by_name = device_time(
+            torch, lambda: [fn() for _ in range(calls)], warmup=True)
+        counted = (sum(build.LAUNCHES.snapshot().values()) - before) // 2
+        missed = {name: n for name, _, n in by_name if n < calls}
+        short = not by_name or missed or n_kernels < counted
+        per_call = {name: (max(1, round(n / calls)), ms / n)
                     for name, ms, n in by_name}
         total = sum(c * ms for c, ms in per_call.values())
-        if total > 0:
+        if not short:
             break
+        print(f"profiler window {window} of 3 short ({calls} calls): "
+              f"{n_kernels} kernels traced, {counted} launches counted"
+              + "".join(f"; {name[:60]} {n}" for name, n in missed.items()),
+              flush=True)
     return total, per_call
 
 
@@ -1101,19 +1162,133 @@ def dense_serving_phase(torch, check, cfg, dev) -> list[dict]:
             decode]
 
 
-def hybrid_serving_phase(torch, check, cfg, dev) -> list[dict]:
+def lru_gated_row(torch, check, dev, w, launches, in_prefill,
+                  lru_registers) -> dict:
+    """K6's gated form at the hybrid's prefill shape (2, 4096, W) and its
+    decode shape (2, 1, W) from a state, in bf16 and f32 gates: held
+    against its plain version (``LRU_TOL``) with each of
+    ``ref.GATED_MUTANTS`` failing that hold, its elements that differ from
+    the stepped route (PyTorch's ops forming a and b, then K6) counted (0
+    expected); timed in bf16, the served dtype, by CUDA events and the
+    profiler beside the stepped route, its plain version and its bytes
+    bound.  Returns its ``kernels`` row."""
+    from repro_torch.kernels.rglru.ref import (GATED_MUTANTS, gated_ab,
+                                               gated_mutant,
+                                               rglru_gated_scan_ref)
+    from repro_torch.kernels.rglru.rglru import rglru_gated_scan, rglru_scan
+
+    def stepped(r, i, xc, a_param, h0=None):
+        return rglru_scan(*gated_ab(r, i, xc, a_param), h0)
+
+    errs, n_differ = {}, 0
+    shapes = (("prefill", (HYBRID_BATCH, HYBRID_PROMPT, w), False),
+              ("decode from a state", (HYBRID_BATCH, 1, w), True))
+    for seed, (dtype, (name, shape, with_h0)) in enumerate(
+            (d, c) for d in (torch.bfloat16, torch.float32) for c in shapes):
+        args = lru_gated_inputs(torch, *shape, dtype, dev, 20 + seed, with_h0)
+        what = f"{name} {shape} {str(dtype)[6:]}"
+        got = rglru_gated_scan(*args)
+        want = rglru_gated_scan_ref(*args)
+        errs[what] = float((got - want).abs().max())
+        bound = LRU_TOL * max(1.0, float(want.abs().max()))
+        check(errs[what] <= bound, f"K6 gated form vs plain at {what}: max "
+              f"|d| {errs[what]:.3g}, bound {bound:.3g}")
+        del want
+        ref = stepped(*args)
+        n = int((got != ref).sum())
+        n_differ += n
+        check(n == 0, f"K6 gated form vs the stepped route at {what}: {n} "
+              f"of {got.numel()} elements differ, max |d| "
+              f"{float((got - ref).abs().max()):.3g}")
+        del ref
+        for mutant in GATED_MUTANTS:
+            bad = gated_mutant(mutant, *args)
+            if bad is None:
+                continue
+            ratio = float((got - bad).abs().max()) / (
+                LRU_TOL * max(1.0, float(bad.abs().max())))
+            check(ratio > 1, f"K6 gated hold at {what}: the plain version "
+                  f"with {mutant} stands at {ratio:.3g} of the bound, so it "
+                  f"fails")
+            del bad
+        del got, args
+    free_card(torch)
+
+    args = lru_gated_inputs(torch, HYBRID_BATCH, HYBRID_PROMPT, w,
+                            torch.bfloat16, dev, 30)
+    # r, i, xc read and h written once, a_param once; per element about 11
+    # fp32 operations (-c·r, ·softplus, exp, a·a, 1 - ·, max, sqrt, i·xc,
+    # the product, and the fma's two)
+    n = args[0].numel()
+    nbytes = 3 * n * args[0].element_size() + 4 * n + 4 * w
+    flops = 11 * n
+    b_ms, b_by = bound_ms(nbytes, flops)
+    ms = time_ms(torch, lambda: rglru_gated_scan(*args), 20)
+    dev_ms, by_name = kernel_ms(torch, lambda: rglru_gated_scan(*args), 10)
+    st_ms = time_ms(torch, lambda: stepped(*args), 5)
+    st_dev_ms, st_by_name = kernel_ms(torch, lambda: stepped(*args), 5)
+    plain_ms = time_ms(torch, lambda: rglru_gated_scan_ref(*args), 2)
+    st_kernels = sum(n for n, _ in st_by_name.values())
+    print(f"K6 gated form at {tuple(args[0].shape)} bf16: {ms:.4f} ms by "
+          f"CUDA events, {dev_ms:.4f} ms on the card (profiler: {by_name}); "
+          f"bound {b_ms:.4f} ms ({b_by}: {nbytes / 1e6:.1f} MB, "
+          f"{flops / 1e9:.3f} GFLOP); the stepped route {st_ms:.4f} ms "
+          f"({st_dev_ms:.4f} ms on the card in {st_kernels} kernels a call: "
+          f"{st_by_name}); plain {plain_ms:.1f} ms", flush=True)
+    del args
+    dec = lru_gated_inputs(torch, HYBRID_BATCH, 1, w, torch.bfloat16, dev,
+                           31, with_h0=True)
+    dec_bytes = 3 * HYBRID_BATCH * w * 2 + 4 * w + 2 * HYBRID_BATCH * w * 4
+    dec_ms = time_ms(torch, lambda: rglru_gated_scan(*dec), 200)
+    dec_dev_ms = kernel_ms(torch, lambda: rglru_gated_scan(*dec), 50)[0]
+    check(dec_dev_ms > 0,
+          "K6 gated form's decode-shape calls show in a profiler trace")
+    dec_st_ms = time_ms(torch, lambda: stepped(*dec), 200)
+    dec_st_dev_ms = kernel_ms(torch, lambda: stepped(*dec), 50)[0]
+    row = {"name": "rglru_gated_scan", "route": "cuda",
+           "source": "src/repro_torch/csrc/rglru.cu",
+           "replaces": "src/repro/kernels/rglru/rglru.py:48",
+           "launches": launches.get("rglru_gated_scan", 0),
+           "prefill_launches": in_prefill.get("rglru_gated_scan", 0),
+           "max_abs_err": max(errs.values()),
+           "differ_from_stepped": n_differ, "ms": ms, "device_ms": dev_ms,
+           "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+           "library_ms": None, "stepped_ms": st_ms,
+           "stepped_device_ms": st_dev_ms, "stepped_kernels": st_kernels,
+           "decode_ms": dec_ms, "decode_device_ms": dec_dev_ms,
+           "decode_bound_ms": dec_bytes / PEAK_BYTES_S * 1e3,
+           "decode_bound_by": "bytes", "decode_stepped_ms": dec_st_ms,
+           "decode_stepped_device_ms": dec_st_dev_ms,
+           "registers": {form: regs for form, (regs, _) in
+                         lru_registers.items() if form.startswith("gated")}}
+    row["decode_launches"] = row["launches"] - row["prefill_launches"]
+    print(f"K6 gated form at the decode shape {(HYBRID_BATCH, 1, w)} bf16 "
+          f"from a state: {dec_ms:.4f} ms a call by CUDA events over 200 "
+          f"back-to-back calls, {dec_dev_ms:.4f} ms on the card (profiler); "
+          f"the stepped route {dec_st_ms:.4f} ms ({dec_st_dev_ms:.4f} ms on "
+          f"the card); reads and writes {dec_bytes / 1e3:.1f} KB, bound "
+          f"{row['decode_bound_ms']:.5f} ms (bytes); launches "
+          f"{row['prefill_launches']} in the prefill, "
+          f"{row['decode_launches']} in the serve steps", flush=True)
+    return row
+
+
+def hybrid_serving_phase(torch, check, cfg, dev, lru_registers) -> list[dict]:
     """``cfg`` (RecurrentGemma-9B) served on ``dev`` with bf16 ring
-    buffers, the kernel route held against K6's and K4's plain versions
-    and decode against forward past the window, and K6 and K4 (windowed,
-    head_dim 256) held and timed against their plain versions.  Returns
-    K6's, the windowed K4's and K4's decode form's (over the ring)
-    ``kernels`` rows."""
+    buffers, the kernel route held against K6's gated form's and K4's
+    plain versions and decode against forward past the window, and both
+    forms of K6 and K4 (windowed, head_dim 256) held and timed against
+    their plain versions, K6's gated form also against the stepped route
+    it replaced.  Returns K6's standalone and gated rows (with the builds'
+    ``lru_registers``), the windowed K4's and K4's decode form's (over the
+    ring) ``kernels`` rows."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.attention.attention import flash_attention
     from repro_torch.kernels.attention.ref import (HOLD, attention_ref,
                                                    hold_ratio)
-    from repro_torch.kernels.rglru.ref import rglru_scan_ref
+    from repro_torch.kernels.rglru.ref import (rglru_gated_scan_ref,
+                                               rglru_scan_ref)
     from repro_torch.kernels.rglru.rglru import rglru_scan
     from repro_torch.models import attention, init_params, recurrent
 
@@ -1132,7 +1307,8 @@ def hybrid_serving_phase(torch, check, cfg, dev) -> list[dict]:
     # -- the timed serve, counted, and its profile ----------------------
     toks, launches, in_prefill, t_prefill, t_decode = timed_serve(
         torch, check, model, cfg, prompts,
-        {"rglru_scan": n_rec, "flash_attention": n_attn})
+        {"rglru_gated_scan": n_rec, "rglru_scan": 0,
+         "flash_attention": n_attn})
     profile_serve(torch, model, cfg, prompts, toks, t_prefill, t_decode,
                   check, n_attn)
     del model
@@ -1142,7 +1318,7 @@ def hybrid_serving_phase(torch, check, cfg, dev) -> list[dict]:
     model = init_params(cfg, SERVE_SEED, torch.float32, dev)
     hold_serve(torch, check, model, cfg, prompts[:1, :HYBRID_HOLD_PROMPT],
                HYBRID_HOLD_DECODE,
-               [(recurrent, "lru_scan", rglru_scan_ref),
+               [(recurrent, "lru_gated_scan", rglru_gated_scan_ref),
                 (attention, "gqa_attention", attention_ref)])
     del model
     free_card(torch)
@@ -1187,9 +1363,11 @@ def hybrid_serving_phase(torch, check, cfg, dev) -> list[dict]:
               "prefill_launches": in_prefill.get("rglru_scan", 0),
               "max_abs_err": max(lru_errs.values()),
               "ms": time_ms(torch, lambda: rglru_scan(a, b), 20),
+              "device_ms": kernel_ms(torch, lambda: rglru_scan(a, b), 10)[0],
               "plain_ms": time_ms(torch, lambda: rglru_scan_ref(a, b), 2),
               "bound_ms": lru_bound, "bound_by": lru_by,
-              "library_ms": None}
+              "library_ms": None,
+              "registers": lru_registers.get("standalone", (None,))[0]}
     del a, b
     # the decode shape: one step from a state, a, b and h0 read, h written
     dec = lru_inputs(HYBRID_BATCH, 1, w, seed=3, with_h0=True)
@@ -1202,8 +1380,10 @@ def hybrid_serving_phase(torch, check, cfg, dev) -> list[dict]:
         "decode_ms": dec_ms, "decode_device_ms": dec_dev_ms,
         "decode_bound_ms": dec_bytes / PEAK_BYTES_S * 1e3,
         "decode_bound_by": "bytes"})
-    print(f"K6 at {(HYBRID_BATCH, HYBRID_PROMPT, w)}: {k6_row['ms']:.4f} ms; "
-          f"at the decode shape {(HYBRID_BATCH, 1, w)} from a state: "
+    print(f"K6 at {(HYBRID_BATCH, HYBRID_PROMPT, w)}: {k6_row['ms']:.4f} ms "
+          f"by CUDA events, {k6_row['device_ms']:.4f} ms on the card "
+          f"(profiler); at the decode shape {(HYBRID_BATCH, 1, w)} from a "
+          f"state: "
           f"{dec_ms:.4f} ms a call by CUDA events over 200 back-to-back "
           f"calls, {dec_dev_ms:.4f} ms on the card (profiler); reads and "
           f"writes {dec_bytes / 1e3:.1f} KB, bound "
@@ -1211,6 +1391,9 @@ def hybrid_serving_phase(torch, check, cfg, dev) -> list[dict]:
           f"{k6_row['prefill_launches']} in the prefill, "
           f"{k6_row['decode_launches']} in the serve steps", flush=True)
     del dec
+    free_card(torch)
+    gated_row = lru_gated_row(torch, check, dev, w, launches, in_prefill,
+                              lru_registers)
     free_card(torch)
 
     # -- K4 with the window at head_dim 256, and its decode form over a ring
@@ -1298,7 +1481,7 @@ def hybrid_serving_phase(torch, check, cfg, dev) -> list[dict]:
               "library_ms": time_ms(torch, library, 10),
               **prefill_rate(f"prefill, window {win}", flops, ms,
                              max(t_ops, t_bytes, t_sfu) * 1e3)}
-    return [k6_row, k4_row, decode]
+    return [k6_row, gated_row, k4_row, decode]
 
 
 def audio_phase(torch, check, cfg, dev) -> dict:
@@ -1944,6 +2127,13 @@ def main() -> int:
     check(len(rk) == 4 and all(spill == 0 for _, spill in rk.values()),
           f"K2's {len(rk)} resize_kernel builds (4 expected: tiles of 128, "
           f"64, 32 and 16 columns) spill nothing")
+    lb = lru_builds(built)
+    print("ptxas K6 scan_kernel<form>: " + "; ".join(
+        f"{form} {regs} registers, {spill} bytes spilled"
+        for form, (regs, spill) in sorted(lb.items())), flush=True)
+    check(len(lb) == 3 and all(spill == 0 for _, spill in lb.values()),
+          f"K6's {len(lb)} scan_kernel builds (3 expected: the standalone "
+          f"form, gated bf16 and f32) spill nothing")
     enc = [(regs, spill) for name, entry, regs, spill, _ in built
            if name == "dct8" and "encode_chunks_kernel" in entry]
     check(len(enc) == 1 and enc[0][1] == 0,
@@ -2217,7 +2407,7 @@ def main() -> int:
     free_card(torch)
     t0 = time.perf_counter()
     rows.extend(hybrid_serving_phase(torch, check, get_config(HYBRID_ARCH),
-                                     dev))
+                                     dev, lb))
     print(f"hybrid serving phase: {time.perf_counter() - t0:.1f} s",
           flush=True)
     free_card(torch)

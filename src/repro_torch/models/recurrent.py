@@ -6,10 +6,10 @@ The projections, the conv and the gates are plain PyTorch, as they are jnp
 in the reference; the scans go through kernels, the CUDA kernel on the
 card and its plain version on the CPU: Mamba's -- the reference's
 ``scan_impl="step"`` body -- through K5 (``kernels/mamba_scan/ops.py``),
-the RG-LRU's ``h_t = a_t·h_{t-1} + b_t`` through K6
-(``kernels/rglru/ops.py``).  One mixer call serves both forms: the full
-sequence from a zero state (train, prefill) and one step from a carried
-state (decode).
+the RG-LRU's ``h_t = a_t·h_{t-1} + b_t``, with a and b formed from its
+gates, through K6's gated form (``kernels/rglru/ops.py``).  One mixer
+call serves both forms: the full sequence from a zero state (train,
+prefill) and one step from a carried state (decode).
 """
 
 from __future__ import annotations
@@ -21,11 +21,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..kernels.mamba_scan.ops import selective_scan
-from ..kernels.rglru.ops import lru_scan
+from ..kernels.rglru.ops import lru_gated_scan
 from .layers import param, truncated_normal
-
-#: the RG-LRU's gate constant c in ``log a = -c·r·softplus(a_param)``
-C_RGLRU = 8.0
 
 
 def _causal_conv(x: torch.Tensor, w: torch.Tensor, state=None):
@@ -150,19 +147,16 @@ class RGLRUMixer(nn.Module):
         new_state), the new ``h`` the last row of the scan in float32.
 
         Types follow the reference step by step: the gates in the
-        activation dtype; ``-c·r`` there too, times the float32
-        ``softplus(a_param)`` in float32; ``a`` and ``b`` in float32, with
-        ``i·xc`` taken in the activation dtype before the cast."""
+        activation dtype; a and b formed from them in float32 as
+        ``kernels/rglru/ref.py::gated_ab`` forms them (in the kernel's
+        registers on the card), then scanned."""
         yb = F.gelu(x @ self.wy, approximate="tanh")
         xc, conv_state = _causal_conv(
             x @ self.wx, self.conv, None if state is None else state["conv"])
         r = torch.sigmoid(xc @ self.w_rec_gate)
         i = torch.sigmoid(xc @ self.w_input_gate)
-        log_a = -C_RGLRU * r * F.softplus(self.a_param)
-        a = torch.exp(log_a.to(torch.float32))
-        b = torch.sqrt(torch.clamp(1.0 - a * a, min=1e-12)) \
-            * (i * xc).to(torch.float32)
-        h = lru_scan(a, b, None if state is None else state["h"])
+        h = lru_gated_scan(r, i, xc, self.a_param,
+                           None if state is None else state["h"])
         out = (h.to(x.dtype) * yb) @ self.wo
         return out, {"conv": conv_state, "h": h[:, -1].contiguous()}
 

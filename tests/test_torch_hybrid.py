@@ -32,6 +32,8 @@ sequential):
   and its associative-scan oracle: 1e-5 (the bound of
   ``tests/test_kernels.py::test_rglru_matches_ref``); against the
   reference's sequential step: 2e-6 of the largest |h|;
+* K6's plain gated form vs the reference's a and b followed by its
+  ``linear_scan`` or its sequential step: 1e-5, the mixer's bound;
 * K4's windowed plain version vs the reference's Pallas kernel and its
   blocked jnp attention: 2e-5;
 * greedy tokens: equal.
@@ -63,8 +65,8 @@ from repro.train import make_serve_step as ref_make_serve_step
 from repro_torch import configs
 from repro_torch.kernels.attention import ops as attn_ops
 from repro_torch.kernels.attention.ref import attention_ref
-from repro_torch.kernels.rglru import ops as scan_ops
-from repro_torch.kernels.rglru.ref import rglru_scan_ref
+from repro_torch.kernels.rglru.ref import (gate_arrays, rglru_gated_scan_ref,
+                                          rglru_scan_ref)
 from repro_torch.launch import serve
 from repro_torch.models import (HybridLM, decode_step, forward, init_cache,
                                 init_params, prefill)
@@ -187,7 +189,7 @@ def test_plain_scan_matches_reference_kernel_and_oracle(b, s, w):
         _close(got, kern, SCAN_TOL, f"vs Pallas {tiles}")
     _close(got, ref_scan_oracle(jnp.asarray(a), jnp.asarray(bb)), SCAN_TOL,
            "vs linear_scan")
-    assert torch.equal(scan_ops.lru_scan(_t(a), _t(bb)), got)
+    assert torch.equal(rglru_scan_ref(_t(a), _t(bb), torch.zeros((b, w))), got)
 
 
 @pytest.mark.parametrize("split", [1, 17, 44])
@@ -238,6 +240,51 @@ def test_plain_step_rounds_as_the_references():
           f"equal; vs two roundings: {np.mean(two == want):.4f} equal "
           f"({want.size} steps)")
     assert np.max(np.abs(got - want)) <= 2e-6 * np.max(np.abs(want))
+
+
+def _reference_gated_scan(r, i, xc, a_param, h0=None):
+    """The reference's a and b, as ``rglru_mix`` forms them
+    (``src/repro/models/recurrent.py:89-92``), then its ``linear_scan``
+    (fresh) or its ``lax.scan`` step (from a state)."""
+    log_a = -ref_recurrent.C_RGLRU * r * jax.nn.softplus(a_param)
+    a = jnp.exp(log_a.astype(jnp.float32))
+    gated = (i * xc).astype(jnp.float32)
+    b = jnp.sqrt(jnp.maximum(1.0 - a * a, 1e-12)) * gated
+    if h0 is None:
+        return ref_recurrent.linear_scan(a, b)
+
+    def step(carry, ab):
+        at, bt = ab
+        hn = at * carry + bt
+        return hn, hn
+
+    _, hs = jax.lax.scan(step, h0, (jnp.moveaxis(a, 1, 0),
+                                    jnp.moveaxis(b, 1, 0)))
+    return jnp.moveaxis(hs, 0, 1)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("s,with_h0", [(1, True), (45, False), (45, True),
+                                       (130, False)])
+def test_plain_gated_scan_matches_reference_formation_and_scans(
+        dtype, s, with_h0):
+    """K6's plain gated form (``rglru_gated_scan_ref``, the port's CPU path
+    for the RG-LRU's a, b and scan) against the reference's a and b
+    followed by its fresh ``linear_scan`` or its step from a state, on the
+    same gates in f32 and in bf16 (r, i and xc rounded to bf16 on both
+    sides from the same numpy values)."""
+    r, i, xc, a_param, h0 = gate_arrays(B, s, 40, seed=s + len(dtype))
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    gates = [np.asarray(jnp.asarray(g, jdt).astype(jnp.float32))
+             for g in (r, i, xc)]
+    h0 = h0 if with_h0 else None
+    want = _reference_gated_scan(
+        *(jnp.asarray(g, jdt) for g in gates), jnp.asarray(a_param),
+        None if h0 is None else jnp.asarray(h0))
+    got = rglru_gated_scan_ref(*(_t(g).to(tdt) for g in gates), _t(a_param),
+                               None if h0 is None else _t(h0))
+    assert got.dtype == torch.float32
+    _close(got, want, STATE_TOL, f"{dtype} S {s}")
 
 
 # ---------------------------------------------------------------------------

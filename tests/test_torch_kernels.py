@@ -1,13 +1,15 @@
 """The port's CUDA kernels (K1 dct8_dequantize, K2 resize_bilinear,
 K3 dct8_quantize and its encoder form dct8_encode_chunks, K4
-flash_attention, K5 mamba_scan, K6 rglru_scan) against their plain PyTorch
-versions.
+flash_attention, K5 mamba_scan, K6 rglru_scan and its gated form
+rglru_gated_scan) against their plain PyTorch versions.
 
 This file imports neither ``jax`` nor ``repro``, so it also runs on a GPU
 host that has PyTorch but no JAX.  On the CPU it checks what the kernels
 receive (the wrappers refuse CPU tensors, ``ops`` routes them to the plain
 versions, K2's banded taps reproduce the dense weights, K5's and K6's
-plain scans carry their state across a split, K5's kernel arithmetic --
+plain scans carry their state across a split, K6's gated form is the
+mixer's stepped ops plus the plain scan and its mutants fail the hold,
+K5's kernel arithmetic --
 the decay as 2^(delta·a·log2 e), one fma a state, y summed over lanes in
 butterfly order -- holds its 1e-5 bound where its input-level mutants
 fail it, K4's decode form is a row
@@ -60,7 +62,9 @@ from repro_torch.kernels.resize import resize as K2
 from repro_torch.kernels.resize.ref import resize_ref
 from repro_torch.kernels.rglru import ops as lru_ops
 from repro_torch.kernels.rglru import rglru as K6
-from repro_torch.kernels.rglru.ref import rglru_scan_ref
+from repro_torch.kernels.rglru.ref import (GATED_MUTANTS, gate_arrays,
+                                          gated_ab, gated_mutant,
+                                          rglru_gated_scan_ref, rglru_scan_ref)
 
 #: K6 vs its plain version, of max(1, max |h|): both round each step once,
 #: but the plain version's float64 step rounds twice on its way to float32
@@ -718,7 +722,8 @@ def test_decode_wrapper_launches_one_grid_per_cache(monkeypatch, bsz, sk,
 
 def test_rglru_scan_wrapper_refuses_cpu_and_ops_routes_to_plain():
     """K6's wrapper never falls back: CPU tensors and types other than
-    float32 are refused; ``ops`` sends CPU tensors to the plain scan."""
+    float32 are refused; ``ops`` sends CPU gates to the plain gated form,
+    which is the plain scan of the gates' a and b."""
     g = torch.Generator().manual_seed(0)
     a = torch.rand((2, 5, 12), generator=g)
     b = torch.randn((2, 5, 12), generator=g)
@@ -727,9 +732,11 @@ def test_rglru_scan_wrapper_refuses_cpu_and_ops_routes_to_plain():
         K6.rglru_scan(a, b, h0)
     with pytest.raises(ValueError, match="CUDA"):
         K6.rglru_scan(a.double(), b)
-    h = lru_ops.lru_scan(a, b, h0)
+    r, i, xc, a_param, h0 = _gates(2, 5, 12, torch.float32, seed=0,
+                                   with_h0=True)
+    h = lru_ops.lru_gated_scan(r, i, xc, a_param, h0)
     assert h.dtype == torch.float32
-    assert torch.equal(h, rglru_scan_ref(a, b, h0))
+    assert torch.equal(h, rglru_scan_ref(*gated_ab(r, i, xc, a_param), h0))
 
 
 def test_rglru_plain_scan_carries_state_and_starts_from_zero():
@@ -746,6 +753,94 @@ def test_rglru_plain_scan_carries_state_and_starts_from_zero():
     assert torch.equal(torch.cat([h1, h2], dim=1), h)
     assert torch.equal(rglru_scan_ref(a, b),
                        rglru_scan_ref(a, b, torch.zeros_like(h0)))
+
+
+def _gates(bsz, s, w, dtype, seed, with_h0=False):
+    """K6's gated inputs (``gate_arrays``) as tensors: r, i and xc in
+    ``dtype``, ``a_param`` float32, h0 float32 or None."""
+    r, i, xc, a_param, h0 = (torch.from_numpy(x)
+                             for x in gate_arrays(bsz, s, w, seed))
+    return (*(g.to(dtype) for g in (r, i, xc)), a_param,
+            h0 if with_h0 else None)
+
+
+def _lru_hold(got, want) -> float:
+    """max |got - want| over ``LRU_TOL`` of max(1, max |want|): the hold
+    passes at 1 or less."""
+    return float((got - want).abs().max()) / (
+        LRU_TOL * max(1.0, float(want.abs().max())))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("with_h0", [False, True])
+def test_rglru_gated_scan_routes_to_plain_equal_to_the_stepped_ops(
+        dtype, with_h0):
+    """On CPU tensors ``lru_gated_scan`` is the plain gated form, which
+    equals, bit for bit, the RG-LRU mixer's stepped ops (a and b formed in
+    PyTorch, as the mixer formed them before the gated form) followed by
+    the plain scan, in bf16 and f32 gates, from zero and from a state."""
+    r, i, xc, a_param, h0 = _gates(2, 37, 24, dtype, seed=5,
+                                   with_h0=with_h0)
+    got = lru_ops.lru_gated_scan(r, i, xc, a_param, h0)
+    log_a = -8.0 * r * torch.nn.functional.softplus(a_param)
+    a = torch.exp(log_a.to(torch.float32))
+    b = torch.sqrt(torch.clamp(1.0 - a * a, min=1e-12)) \
+        * (i * xc).to(torch.float32)
+    assert got.dtype == torch.float32 and got.shape == (2, 37, 24)
+    assert torch.equal(got, rglru_scan_ref(a, b, h0))
+    assert torch.equal(got, rglru_gated_scan_ref(r, i, xc, a_param, h0))
+    assert all(torch.equal(x, y) for x, y in zip(gated_ab(r, i, xc, a_param),
+                                                 (a, b)))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mutant", GATED_MUTANTS)
+def test_rglru_gated_mutants_fail_the_hold(dtype, mutant):
+    """Each of ``GATED_MUTANTS`` stands far outside the 2^-20 hold of the
+    plain gated form -- from a state, at one step (the decode shape) and
+    over 40 -- so the card's holds would catch a kernel with that
+    defect."""
+    for s in (1, 40):
+        r, i, xc, a_param, h0 = _gates(2, s, 24, dtype, seed=s,
+                                       with_h0=True)
+        want = rglru_gated_scan_ref(r, i, xc, a_param, h0)
+        bad = gated_mutant(mutant, r, i, xc, a_param, h0)
+        assert _lru_hold(bad, want) > 100, (mutant, s)
+    assert gated_mutant("h0 ignored", r, i, xc, a_param) is None
+
+
+@pytest.mark.parametrize("case", ["cpu tensors", "float16 gates",
+                                  "gate dtypes differ", "gate shapes differ",
+                                  "a_param in bf16", "a_param's width",
+                                  "h0's shape", "not (B, S, W)"])
+def test_rglru_gated_scan_wrapper_refuses(case):
+    """K6's gated form never falls back: CPU tensors are refused, and so,
+    before the device is looked at, are gates in another dtype than f32 or
+    bf16, gates whose dtypes or shapes differ, an ``a_param`` that is not
+    (W,) float32, an h0 that is not (B, W) and inputs that are not 3-D."""
+    r, i, xc, a_param, h0 = _gates(2, 5, 16, torch.bfloat16, seed=0,
+                                   with_h0=True)
+    match = {"cpu tensors": "CUDA", "float16 gates": "gates in",
+             "gate dtypes differ": "i must be", "gate shapes differ":
+             "xc must be", "a_param in bf16": "a_param must be",
+             "a_param's width": "a_param must be", "h0's shape": "h0 must be",
+             "not (B, S, W)": "takes"}[case]
+    if case == "float16 gates":
+        r, i, xc = (t.half() for t in (r, i, xc))
+    elif case == "gate dtypes differ":
+        i = i.float()
+    elif case == "gate shapes differ":
+        xc = xc[:, :4].contiguous()
+    elif case == "a_param in bf16":
+        a_param = a_param.bfloat16()
+    elif case == "a_param's width":
+        a_param = a_param[:8].contiguous()
+    elif case == "h0's shape":
+        h0 = h0[:1].contiguous()
+    elif case == "not (B, S, W)":
+        r = r[0]
+    with pytest.raises(ValueError, match=match):
+        K6.rglru_gated_scan(r, i, xc, a_param, h0)
 
 
 # ---------------------------------------------------------------------------
@@ -1033,8 +1128,8 @@ def test_rglru_scan_kernel_matches_plain_on_card(cuda, s, w, with_h0):
     """K6 against its plain version on the same card inputs: both round
     each step once (``fmaf`` there, a float64 step rounded to float32
     here), so h agrees within ``LRU_TOL`` of its largest value; lengths
-    on both sides of the kernel's 16-step chunk, widths not a multiple of
-    its 64-column block."""
+    on both sides of the kernel's 32-step chunk, widths not a multiple of
+    its 32-column band."""
     g = torch.Generator(device=cuda).manual_seed(s + w)
     a = torch.sigmoid(torch.randn((2, s, w), generator=g, device=cuda))
     b = torch.randn((2, s, w), generator=g, device=cuda)
@@ -1046,6 +1141,58 @@ def test_rglru_scan_kernel_matches_plain_on_card(cuda, s, w, with_h0):
     want = rglru_scan_ref(a, b, h0)
     scale = max(1.0, float(want.abs().max()))
     assert float((got - want).abs().max()) <= LRU_TOL * scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s", [1, 15, 16, 77, 300])
+@pytest.mark.parametrize("w", [64, 200, 4096])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("with_h0", [False, True])
+def test_rglru_gated_scan_kernel_matches_plain_on_card(cuda, s, w, dtype,
+                                                       with_h0):
+    """K6's gated form in one launch against its plain version within
+    ``LRU_TOL`` of the largest |h|, and equal element for element to the
+    stepped route on the same card (PyTorch's ops forming a and b, then
+    K6): lengths of one step, within and at the end of a 32-step chunk,
+    ending mid-chunk inside the ring (77) and past it (300); widths not a
+    multiple of the 32-column band."""
+    r, i, xc, a_param, h0 = (None if t is None else t.to(cuda) for t in
+                             _gates(2, s, w, dtype, seed=s + w,
+                                    with_h0=with_h0))
+    LAUNCHES.reset()
+    got = K6.rglru_gated_scan(r, i, xc, a_param, h0)
+    torch.cuda.synchronize()
+    assert LAUNCHES.snapshot() == {"rglru_gated_scan": 1}
+    assert got.dtype == torch.float32 and got.shape == (2, s, w)
+    assert _lru_hold(got, rglru_gated_scan_ref(r, i, xc, a_param, h0)) <= 1
+    stepped = K6.rglru_scan(*gated_ab(r, i, xc, a_param), h0)
+    assert int((got != stepped).sum()) == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w,offset", [(13, 0), (70, 0), (64, 1)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rglru_kernels_take_ragged_widths_and_unaligned_tensors_on_card(
+        cuda, w, offset, dtype):
+    """Widths that are not a multiple of 8 columns, and inputs one element
+    past a 16-byte boundary, take the kernels' scalar loads: both forms
+    still hold against their plain versions, and the gated form equals
+    the stepped route."""
+    r, i, xc, a_param, h0 = _gates(2, 45, w, dtype, seed=w, with_h0=True)
+
+    def shifted(t):  # contiguous, ``offset`` elements into its storage
+        buf = torch.empty(t.numel() + offset, dtype=t.dtype, device=cuda)
+        buf[offset:] = t.reshape(-1).to(cuda)
+        return buf[offset:].view(t.shape)
+
+    r, i, xc = (shifted(t) for t in (r, i, xc))
+    a_param, h0 = a_param.to(cuda), h0.to(cuda)
+    got = K6.rglru_gated_scan(r, i, xc, a_param, h0)
+    assert _lru_hold(got, rglru_gated_scan_ref(r, i, xc, a_param, h0)) <= 1
+    a, b = (shifted(t) for t in gated_ab(r, i, xc, a_param))
+    got_ab = K6.rglru_scan(a, b, h0)
+    assert _lru_hold(got_ab, rglru_scan_ref(a, b, h0)) <= 1
+    assert int((got != got_ab).sum()) == 0
 
 
 @pytest.mark.cuda
@@ -1091,10 +1238,10 @@ def test_flash_attention_hd256_decode_form_matches_plain_on_card(
 @pytest.mark.cuda
 def test_reduced_recurrentgemma_on_card_matches_plain_path(cuda):
     """A reduced RecurrentGemma at head_dim 64 (d 256, window 32): prefill
-    past the window and decode steps that wrap the ring on the card (K6
-    once per RG-LRU layer, K4 once per attention layer, per prefill and
-    per step) give the CPU plain path's logits within 1e-4, and the same
-    greedy tokens."""
+    past the window and decode steps that wrap the ring on the card (K6's
+    gated form once per RG-LRU layer, K4 once per attention layer, per
+    prefill and per step) give the CPU plain path's logits within 1e-4,
+    and the same greedy tokens."""
     from repro_torch.configs import get_config
     from repro_torch.launch.serve import generate
     from repro_torch.models import init_params, prefill
@@ -1106,7 +1253,7 @@ def test_reduced_recurrentgemma_on_card_matches_plain_path(cuda):
                             generator=torch.Generator().manual_seed(1))
     LAUNCHES.reset()
     toks, _, _ = generate(model, cfg, prompts.to(cuda), 5)
-    assert LAUNCHES.snapshot() == {"rglru_scan": 3 * 5,
+    assert LAUNCHES.snapshot() == {"rglru_gated_scan": 3 * 5,
                                    "flash_attention": 1 * 5}
     want, _, _ = generate(model_cpu, cfg, prompts, 5)
     assert toks.cpu().tolist() == want.tolist()
