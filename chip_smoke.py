@@ -1,22 +1,24 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one card.
 
-Six paths, each through the entry points a user calls, each with the
+Seven paths, each through the entry points a user calls, each with the
 launch counters zeroed just before it and read just after: the video path
-(below), the serving phase (Falcon-Mamba-7B), the dense serving phase
-(StarCoder2-3B), the hybrid serving phase (RecurrentGemma-9B), the audio
-phase (HuBERT-XLarge's encoder) and the gemma2 serving phase (Gemma2-2B),
+(below), the configuration phase (backward derivation on the card), the
+serving phase (Falcon-Mamba-7B), the dense serving phase (StarCoder2-3B),
+the hybrid serving phase (RecurrentGemma-9B), the audio phase
+(HuBERT-XLarge's encoder) and the gemma2 serving phase (Gemma2-2B),
 further below.
 
 Drives the port's main path at the paper's 720p30 through the entry points
-a user calls: ``VideoStore.ingest_segment`` writes 4 segments of
-``jackson`` and 4 of ``dashcam`` (120 frames of 720x1280 each) into a
+a user calls: ``VideoStore.ingest_segment`` writes segments 1 and 3 of
+``jackson`` and of ``dashcam`` (120 frames of 720x1280 each; of the first
+4, these hold every stage's items) into a
 golden SF and a fast-coded SF, then ``run_query`` runs Query A
 (Diff -> S-NN -> NN) on jackson and Query B (Motion -> License -> OCR) on
 dashcam.  The launch counters are zeroed just before ingest and read just
 after it and just after the queries: K3's encoder form
 (dct8_encode_chunks, a segment's whole DPCM encode in one launch) must
-launch once a segment and coded format (16 times), the standalone K3
+launch once a segment and coded format (8 times), the standalone K3
 (dct8_quantize) never, K1 (dct8_dequantize) not in ingest but in the
 queries (the decoder's), K2 (resize_bilinear) at least once.
 
@@ -24,7 +26,7 @@ On 720p30 scenes Query A's Diff flags no event (cars move a few pixels a
 frame, far under its threshold, tuned on 96x160 scenes at 8 fps), so its
 cascade stops there.  A second counted path, the stage phase, therefore
 drives every item-producing stage of both cascades through
-``BatchedConsumer`` over all 4 segments of its stream with every consumed
+``BatchedConsumer`` over both segments of its stream with every consumed
 frame activated: S-NN and NN on jackson, Motion, License and OCR on
 dashcam at their configured CFs, and Diff on dashcam at the golden SF's
 full-rate 720p, where the camera's pan makes it fire.  Its counters are
@@ -62,6 +64,29 @@ An item comparison fails when either side is empty.
 Each kernel is timed (CUDA events) beside its plain version and, where one
 PyTorch call computes the same function, that call (``library_ms``), with
 the least time the card could take (``bound_ms``).
+
+The configuration phase runs the paper's backward derivation on the card
+at the reference's spec (96x160, 8 fps: the operators' thresholds were
+tuned there, and every candidate SF is entropy-coded on the host) with
+``benchmarks/common.py``'s setting: ``derive_config`` over a ``Profiler``
+of 2 sample segments a stream, 12 consumers (all six operators at 0.9 and
+0.8).  Profiling materializes through K2, the standalone K3 and K1
+(``apply_quality``), encodes through K3's encoder form and decodes
+through K1; each must launch.  It prints the derived table, the
+profiler's runs and seconds by activity, the measured dct8 dispatch costs
+(``dct_backend`` must be "cuda") and the shape ladder ``derive_shapes``
+makes of the measured dispatch overhead; checks R1-R3, golden, the
+accuracy targets and the boundary search's saving; recomputes every
+profiled accuracy with the plain versions bound on the card and derives
+again from a ``TableProfiler`` of those accuracies and the card's speeds
+and storage tables (CFs, SFs and rounds log must equal the card's); plans
+erosion at 0.8, 0.5 and 0.3 of the full storage (golden intact); stores 2
+segments a stream in the derived formats, queries them through the
+derived configuration and ladder, and holds stage stats and items against
+the plain path on the CPU; then materializes the video path's first
+720p30 segment into every derived CF, held against the plain versions
+(max |d| 1, at most 1e-3 of the pixels), and times ``apply_quality`` at
+(120, 720, 1280) beside its bound.
 
 The serving phase serves ``falcon-mamba-7b`` at its published width and
 depth (64 layers, d_model 4096, inner 8192, state 16, vocab 65024) with
@@ -229,7 +254,10 @@ import time
 HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(HERE, "src"))
 
-SEGMENTS = 4
+# the video path's segments of each stream: 1 and 3 hold every stage's
+# items (jackson 1 NN's, dashcam 3 Motion's, License's and OCR's), so no
+# "neither may be empty" check loses its items with 2 segments of 4
+SEGMENTS = (1, 3)
 STREAMS = {"A": "jackson", "B": "dashcam"}
 ACCURACY = 0.8
 # NVIDIA H100 SXM data sheet: HBM3 bandwidth, fp32 without tensor cores,
@@ -240,7 +268,15 @@ PEAK_BF16_FLOP_S = 989e12
 # Hopper special-function units: 16 exp2 per SM per clock, 132 SMs
 SFU_PER_SM_CLOCK = 16
 SMS = 132
+# profiler windows kernel_ms takes before it counts a short one
+PROFILER_WINDOWS = 5
 
+# the configuration phase: benchmarks/common.py's derivation (every
+# operator, accuracies 0.9 and 0.8, 2 sample segments a stream); erosion
+# planned at fig. 12's budgets, fractions of the full storage
+CONFIG_ACCURACIES = (0.9, 0.8)
+CONFIG_SEGMENTS = 2
+EROSION_BUDGETS = (0.8, 0.5, 0.3)
 # the serving phase: Falcon-Mamba-7B at full width, bf16 weights
 SERVE_ARCH = "falcon-mamba-7b"
 SERVE_BATCH, SERVE_PROMPT, SERVE_NEW = 4, 2048, 32
@@ -314,19 +350,23 @@ def smoke_config():
                          coalesce_log=None, dct_backend="cuda")
 
 
-def ingest_all(vs, segments: int):
-    """Ingest ``segments`` segments of each stream, one thread per segment
+def ingest_all(vs, segments: tuple[int, ...]):
+    """Ingest ``segments`` of each stream, one thread per segment
     (scene rendering and entropy coding run on the host, and zlib releases
     the interpreter lock).  Returns the first segment's frames."""
     import concurrent.futures
 
     from repro_torch.analytics.scene import generate_segment
 
-    jobs = [(s, seg) for s in STREAMS.values() for seg in range(segments)]
+    jobs = [(s, seg) for s in STREAMS.values() for seg in segments]
 
     def ingest(job):
+        t0 = time.perf_counter()
         frames, _ = generate_segment(job[0], job[1], vs.spec)
+        t1 = time.perf_counter()
         vs.ingest_segment(job[0], job[1], frames)
+        print(f"ingest {job[0]}:{job[1]}: scene {t1 - t0:.1f} s, "
+              f"transcode {time.perf_counter() - t1:.1f} s", flush=True)
         return frames
 
     with concurrent.futures.ThreadPoolExecutor(len(jobs)) as pool:
@@ -384,10 +424,10 @@ def nn_pyramid_resizes(cf, spec) -> int:
                for s in NN.scales)
 
 
-def run_queries(vs, cfg, segments: int) -> dict:
+def run_queries(vs, cfg, segments: tuple[int, ...]) -> dict:
     from repro_torch.analytics.query import run_query
 
-    return {q: run_query(vs, cfg, q, stream, list(range(segments)), ACCURACY)
+    return {q: run_query(vs, cfg, q, stream, list(segments), ACCURACY)
             for q, stream in STREAMS.items()}
 
 
@@ -894,13 +934,14 @@ def kernel_ms(torch, fn, calls=20) -> tuple[float, dict]:
     each call, so a window is short when the trace shows a kernel fewer
     times than there were calls, or holds fewer kernels than the port's
     wrappers counted (``LAUNCHES``) over the same calls; a short window is
-    printed and taken again, up to 3 in all.  If all three are short, the
+    printed and taken again, up to ``PROFILER_WINDOWS`` in all (a trace
+    may come back empty, most often late in the run).  If all are short, the
     last is counted with each kernel it shows at least once a call.  The
     time is 0.0 if its trace holds no kernel."""
     from repro_torch.kernels import build
 
     total, per_call = 0.0, {}
-    for window in range(1, 4):
+    for window in range(1, PROFILER_WINDOWS + 1):
         before = sum(build.LAUNCHES.snapshot().values())
         _, n_kernels, by_name = device_time(
             torch, lambda: [fn() for _ in range(calls)], warmup=True)
@@ -912,7 +953,8 @@ def kernel_ms(torch, fn, calls=20) -> tuple[float, dict]:
         total = sum(c * ms for c, ms in per_call.values())
         if not short:
             break
-        print(f"profiler window {window} of 3 short ({calls} calls): "
+        print(f"profiler window {window} of {PROFILER_WINDOWS} short "
+              f"({calls} calls): "
               f"{n_kernels} kernels traced, {counted} launches counted"
               + "".join(f"; {name[:60]} {n}" for name, n in missed.items()),
               flush=True)
@@ -2055,6 +2097,226 @@ def encoder_row(torch, check, vs, spec, first_frames, launches,
     return row
 
 
+def plain_dct_resize():
+    """(module, name, plain version) of K1, the standalone K3, K3's encoder
+    form and K2 as their dispatch calls them: bound by ``plain_versions``,
+    the codec, ``apply_quality`` and the operators run the plain versions
+    on the card."""
+    from repro_torch.kernels.dct8 import ops as dct_ops
+    from repro_torch.kernels.dct8.ref import (dct8_dequantize_ref,
+                                              dct8_encode_chunks_ref,
+                                              dct8_quantize_ref)
+    from repro_torch.kernels.resize import ops as resize_ops
+    from repro_torch.kernels.resize.ref import resize_ref
+
+    return [(dct_ops, "dct8_quantize", dct8_quantize_ref),
+            (dct_ops, "dct8_dequantize", dct8_dequantize_ref),
+            (dct_ops, "dct8_encode_chunks", dct8_encode_chunks_ref),
+            (resize_ops, "resize_bilinear", resize_ref)]
+
+
+def config_phase(torch, check, check_items, first_frames, dev) -> dict:
+    """The configuration phase: derive a configuration on the card, hold
+    it against the plain route's, store and query in its formats, and
+    materialize a 720p30 segment into its CFs.  Counters zeroed just before
+    it and read after its card runs (before the comparisons with the plain
+    versions).  Returns its launches and ``apply_quality``'s times."""
+    from repro_torch.analytics.batch import derive_shapes
+    from repro_torch.analytics.query import run_query
+    from repro_torch.analytics.scene import generate_segment
+    from repro_torch.codec import transform as T
+    from repro_torch.core import (DEFAULT_OPS, Profiler, TableProfiler,
+                                  choose_coding, derive_config, plan_erosion)
+    from repro_torch.core.knobs import (QUALITY_QUANT_SCALE, IngestSpec,
+                                        fidelity_space)
+    from repro_torch.kernels import build
+    from repro_torch.videostore.video_store import VideoStore
+
+    real_spec = IngestSpec(720, 1280, 30, 4)
+    spec = IngestSpec()
+    print(f"cut: the configuration phase profiles, stores and queries at "
+          f"the reference's own spec, {spec.height}x{spec.width} at "
+          f"{spec.fps} fps ({spec.segment_seconds}-s segments), not 720p30: "
+          f"the operators' thresholds were tuned there (at 720p30 Query A's "
+          f"Diff flags nothing), and the storage profiles code every "
+          f"candidate SF on the host with zlib (one golden 720p segment "
+          f"takes 140-205 s at zlib 9 on an H100 machine's host); "
+          f"{CONFIG_SEGMENTS} sample segments a "
+          f"stream, benchmarks/common.py's setting", flush=True)
+
+    # -- a. derive a configuration on the card ------------------------------
+    build.LAUNCHES.reset()
+    t_phase = time.perf_counter()
+    prof = Profiler(spec, n_segments=CONFIG_SEGMENTS, repeats=1, device=dev)
+    cfg = derive_config(prof, ops=DEFAULT_OPS,
+                        accuracies=CONFIG_ACCURACIES)
+    t_derive = time.perf_counter() - t_phase
+    cpu_s, cuda_s = prof.dct_dispatch_cost()
+    # Diff scores frame pairs at a segment's positions, so its batches hold
+    # a segment's frames: with the default 64 both packages raise
+    overhead_s, per_frame_s = prof.dispatch_overhead(
+        "diff", n_big=spec.frames_per_segment)
+    shapes = derive_shapes(overhead_s, per_frame_s)
+    st = prof.stats
+    print(cfg.table(), flush=True)
+    print(f"derived: {len(cfg.nodes)} SFs, {6 * len(cfg.nodes)} knobs (4 a "
+          f"fidelity + 2 a coding); {st.consumption_runs} consumption runs, "
+          f"{st.storage_runs} storage runs, {st.memo_hits} memo hits, "
+          f"{st.wall_seconds:.1f} s profiling; derive {t_derive:.1f} s: "
+          f"consumer profiling {st.consumer_seconds:.1f} s, storage "
+          f"profiling (conversion + coding) {st.encode_seconds:.1f} s, "
+          f"retrieval profiling {st.retrieval_seconds:.1f} s; dct dispatch "
+          f"{cpu_s * 1e3:.3f} ms plain (CPU), {cuda_s * 1e3:.3f} ms K1 (card)"
+          f" -> dct_backend {cfg.dct_backend}; dispatch overhead "
+          f"{overhead_s * 1e3:.3f} ms, {per_frame_s * 1e6:.2f} us a frame -> "
+          f"batch shapes {shapes}", flush=True)
+    check(cfg.dct_backend == "cuda",
+          f"dct_backend {cfg.dct_backend!r} from the measured dispatch costs "
+          f"(K1 {cuda_s * 1e3:.3f} ms, plain {cpu_s * 1e3:.3f} ms)")
+    subscribed = [p for n in cfg.nodes for p in n.plans]
+    n_consumers = len(DEFAULT_OPS) * len(CONFIG_ACCURACIES)
+    check(len(subscribed) == len(cfg.plans) == n_consumers
+          and {id(p) for p in subscribed} == {id(p) for p in cfg.plans},
+          f"R3: each of {len(cfg.plans)} consumers subscribed once")
+    check(all(n.fidelity.richer_eq(p.cf) for n in cfg.nodes for p in n.plans),
+          "R1: each SF's fidelity is richer than or equal to its CFs")
+    r2 = [(n.sf.name(), p.consumer.name()) for n in cfg.nodes
+          for p in n.plans
+          if not prof.retrieval_speed(n.sf, p.cf) > p.speed
+          and not (n.sf.coding.bypass
+                   and choose_coding(prof, n.fidelity, n.plans) is None)]
+    check(not r2, f"R2: each subscribed consumer's retrieval speed exceeds "
+          f"its consumption speed (or RAW, where no coding keeps up): "
+          f"{r2 or 'all'}")
+    golden = [n for n in cfg.nodes if n.golden]
+    check(len(golden) == 1 and all(golden[0].fidelity.richer_eq(p.cf)
+                                   for p in cfg.plans),
+          "the golden SF exists, once, and dominates every CF")
+    check(all(p.accuracy >= p.consumer.target - 1e-9 for p in cfg.plans),
+          "every plan's accuracy is at least its target")
+    exhaustive = len(DEFAULT_OPS) * len(fidelity_space())
+    check(st.consumption_runs < exhaustive,
+          f"{st.consumption_runs} consumer profiles, fewer than the "
+          f"exhaustive search's {exhaustive}")
+
+    # -- b. the plain route's derivation -----------------------------------
+    acc, cost, storage, retrieve = prof.tables()
+    with plain_versions(plain_dct_resize()):
+        plain_prof = Profiler(spec, n_segments=CONFIG_SEGMENTS, repeats=1,
+                              device=dev)
+        plain_acc = {cell: plain_prof.accuracy(*cell) for cell in acc}
+    d_f1 = [abs(plain_acc[cell] - a) for cell, a in acc.items()]
+    print(f"plain route: {sum(d == 0 for d in d_f1)} of {len(d_f1)} profiled "
+          f"(op, f) accuracies equal the card's, max |dF1| {max(d_f1):.4g}",
+          flush=True)
+    plain_cfg = derive_config(TableProfiler(plain_acc, cost, storage,
+                                            retrieve),
+                              ops=DEFAULT_OPS, accuracies=CONFIG_ACCURACIES)
+    check([(p.consumer, p.cf) for p in plain_cfg.plans]
+          == [(p.consumer, p.cf) for p in cfg.plans],
+          "the plain route's derivation (its accuracies, the card's speeds "
+          "and storage tables) gives every consumer the card's CF")
+    check(plain_cfg.storage_formats() == cfg.storage_formats()
+          and plain_cfg.coalesce_log.rounds == cfg.coalesce_log.rounds,
+          f"... and the card's SFs and rounds log "
+          f"({len(cfg.coalesce_log.rounds)} rounds)")
+    subs = {p: i for i, n in enumerate(cfg.nodes) for p in n.plans}
+    daily = [prof.storage_profile(n.sf)[1] * 86400 for n in cfg.nodes]
+    golden_idx = next(i for i, n in enumerate(cfg.nodes) if n.golden)
+    for frac in EROSION_BUDGETS:
+        plan = plan_erosion(prof, cfg.nodes, subs, daily, 10,
+                            frac * sum(daily) * 10)
+        intact = all(f.get(golden_idx, 0) == 0 for f in plan.fractions)
+        print(f"erosion at {frac} of the full storage: k {plan.k:.3f}, "
+              f"feasible {plan.feasible}, day-1 speed "
+              f"{plan.overall_speed[0]:.3f}, day-10 speed "
+              f"{plan.overall_speed[-1]:.3f}, golden intact {intact}",
+              flush=True)
+        check(intact, f"erosion at {frac}: golden intact")
+
+    # -- c. store and query in the derived formats --------------------------
+    work = tempfile.mkdtemp(prefix=".smoke-", dir=HERE)
+    try:
+        root = os.path.join(work, "store")
+        vs = VideoStore(root, spec, device=dev)
+        vs.set_formats(cfg.storage_formats())
+        segs = list(range(CONFIG_SEGMENTS))
+        for stream in STREAMS.values():
+            for seg in segs:
+                vs.ingest_segment(stream, seg,
+                                  generate_segment(stream, seg, spec)[0])
+        vs.flush()
+        for stream in STREAMS.values():
+            s = vs.ingest_stats[stream]
+            print(f"derived store, {stream}: {s.segments} segments, "
+                  f"{s.bytes_per_video_second(spec):.1f} bytes a video "
+                  f"second, cost {s.cost_xrealtime(spec):.4f} x realtime",
+                  flush=True)
+
+        def queries(store):
+            return {q: run_query(store, cfg, q, stream, segs, ACCURACY,
+                                 batch_segments=len(segs),
+                                 batch_shapes=shapes)
+                    for q, stream in STREAMS.items()}
+
+        card = queries(vs)
+        torch.cuda.synchronize()
+        plain = queries(VideoStore(root, spec, readonly=True, device="cpu"))
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    for q, res in card.items():
+        rows = [(s.op, s.frames, s.segments_scanned, s.detect_calls, s.items)
+                for s in res.stages]
+        print(f"derived query {q}: {res.measured_speed:.1f}x realtime, "
+              f"{len(res.items)} items; stages {rows}", flush=True)
+        check(rows == [(s.op, s.frames, s.segments_scanned, s.detect_calls,
+                        s.items) for s in plain[q].stages],
+              f"derived query {q} stage stats equal the plain path's")
+        check_items(res.items, plain[q].items, 0.98,
+                    f"derived query {q} items, kernel path vs plain path")
+
+    # -- d. a 720p30 segment materialized into every derived CF -------------
+    raw = torch.from_numpy(first_frames).to(dev)
+    cfs = sorted({p.cf for p in cfg.plans})
+    card_frames = [T.materialize(raw, cf, real_spec) for cf in cfs]
+    torch.cuda.synchronize()
+    launches = build.LAUNCHES.snapshot()
+    t_phase = time.perf_counter() - t_phase
+    print(f"launches in the configuration phase: {launches}", flush=True)
+    for name in ("dct8_dequantize", "resize_bilinear", "dct8_quantize",
+                 "dct8_encode_chunks"):
+        check(launches.get(name, 0) > 0,
+              f"{name} launched in the configuration phase")
+    with plain_versions(plain_dct_resize()):
+        for cf, got in zip(cfs, card_frames):
+            want = T.materialize(raw, cf, real_spec)
+            d = (got.int() - want.int()).abs()
+            n_diff = int((d > 0).sum())
+            check(int(d.max()) <= 1 and n_diff <= 1e-3 * d.numel(),
+                  f"materialize at {tuple(real_spec.resolve(cf))} "
+                  f"{cf.name()}: {n_diff} of {d.numel()} u8 pixels differ "
+                  f"from the plain versions' (max {int(d.max())})")
+    del card_frames
+
+    qs = QUALITY_QUANT_SCALE["bad"]
+    n = raw.numel()
+    b_ms, b_by = bound_ms(2 * n, 2 * n / 64 * (2048 + 64))
+    ms = time_ms(torch, lambda: T.apply_quality(raw, qs), 10)
+    dev_ms, by_kernel = kernel_ms(torch, lambda: T.apply_quality(raw, qs), 10)
+    with plain_versions(plain_dct_resize()):
+        plain_ms = time_ms(torch, lambda: T.apply_quality(raw, qs), 1)
+    print(f"apply_quality at {tuple(raw.shape)} (qs {qs}): {ms:.4f} ms by "
+          f"CUDA events, {dev_ms:.4f} ms on the card (profiler: "
+          f"{by_kernel}); bound {b_ms:.4f} ms ({b_by}: u8 in and out, both "
+          f"transforms); plain {plain_ms:.2f} ms", flush=True)
+    print(f"configuration phase: {t_phase:.1f} s to its counters read",
+          flush=True)
+    return {"launches": launches, "apply_quality_ms": ms,
+            "apply_quality_device_ms": dev_ms,
+            "apply_quality_bound_ms": b_ms,
+            "apply_quality_plain_ms": plain_ms}
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -2155,7 +2417,7 @@ def main() -> int:
         torch.cuda.synchronize()
         t_ingest = time.perf_counter() - t0
         in_ingest = build.LAUNCHES.snapshot()
-        n_seg = SEGMENTS * len(STREAMS)
+        n_seg = len(SEGMENTS) * len(STREAMS)
         raw_gb = n_seg * first_frames.nbytes / 1e9
         print(f"ingest: {n_seg} segments, {raw_gb:.2f} GB raw u8, "
               f"{t_ingest:.1f} s, stored {vs.storage_bytes() / 1e6:.1f} MB",
@@ -2201,7 +2463,7 @@ def main() -> int:
         stage_frames, stage_card = [], []
         for run in runs:
             stream, _op, sf_id, cf = run
-            frames, _ = vs.retrieve_many(stream, list(range(SEGMENTS)),
+            frames, _ = vs.retrieve_many(stream, list(SEGMENTS),
                                          sf_id, cf)
             stage_frames.append(frames)
             stage_card.append(drive_stage(vs, run, frames, build.LAUNCHES))
@@ -2219,16 +2481,17 @@ def main() -> int:
                       f"levels ({want} expected)")
 
         # -- output checks ---------------------------------------------------
-        golden, _ = vs.retrieve(STREAMS["A"], 0, "sf_g", FidelityOption())
+        golden, _ = vs.retrieve(STREAMS["A"], SEGMENTS[0], "sf_g",
+                                FidelityOption())
         mse = float(((golden.float() - torch.from_numpy(first_frames).to(
             golden.device).float()) ** 2).mean())
         psnr = 10 * np.log10(255.0 ** 2 / max(mse, 1e-9))
         plain_golden, _ = VideoStore(root, spec, readonly=True,
                                      device="cpu").retrieve(
-            STREAMS["A"], 0, "sf_g", FidelityOption())
+            STREAMS["A"], SEGMENTS[0], "sf_g", FidelityOption())
         check(tuple(golden.shape) == first_frames.shape and psnr >= 35.0
               and torch.equal(golden.cpu(), plain_golden),
-              f"golden {STREAMS['A']}:0 decodes to {tuple(golden.shape)} "
+              f"golden {STREAMS['A']}:{SEGMENTS[0]} decodes to {tuple(golden.shape)} "
               f"u8 equal to the plain decode, PSNR {psnr:.2f} dB vs the "
               f"ingested frames")
 
@@ -2269,7 +2532,7 @@ def main() -> int:
                   f"{ref['s']:.3f} s plain (CPU), "
                   f"{sum(map(len, card['items'].values()))} items in "
                   f"{sum(1 for v in card['items'].values() if v)} of "
-                  f"{SEGMENTS} segments", flush=True)
+                  f"{len(SEGMENTS)} segments", flush=True)
         del stage_frames
 
         # -- kernels against their plain versions, timed --------------------
@@ -2293,7 +2556,7 @@ def main() -> int:
                         "src/repro/kernels/dct8/dct8.py:64"))
 
         # K1 on the decoder's input: a whole golden segment's symbols
-        blob = vs.backend.get(f"{STREAMS['A']}:sf_g:{0:06d}")
+        blob = vs.backend.get(f"{STREAMS['A']}:sf_g:{SEGMENTS[0]:06d}")
         header, payload = S._parse(blob)
         chunks = np.arange(-(-header["n"] // header["k"]))
         sym_np, _ = S._chunk_symbols(header, payload, chunks,
@@ -2391,6 +2654,23 @@ def main() -> int:
     finally:
         shutil.rmtree(work, ignore_errors=True)
     print(f"video path: {time.perf_counter() - t_start:.1f} s", flush=True)
+
+    # -- the configuration phase, counters zeroed inside it -----------------
+    t0 = time.perf_counter()
+    conf = config_phase(torch, check, check_items, first_frames,
+                        torch.device("cuda"))
+    for row in rows:
+        if row["name"] in ("dct8_quantize", "dct8_dequantize",
+                           "resize_bilinear", "dct8_encode_chunks"):
+            by_path = {"video": row["launches"],
+                       "config": conf["launches"].get(row["name"], 0)}
+            row["launches_by_path"] = by_path
+            row["launches"] = sum(by_path.values())
+    k3 = next(row for row in rows if row["name"] == "dct8_quantize")
+    k3.update({k: v for k, v in conf.items() if k.startswith("apply_")})
+    print(f"configuration phase: {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    free_card(torch)
 
     # -- the serving phases, counters zeroed inside each --------------------
     dev = torch.device("cuda")

@@ -65,6 +65,46 @@ _MIN_SLOT_GAP = max(128, int(np.ceil(1.0 / Diff.threshold)) + 1)
 DEFAULT_BATCH_SHAPES = (8, 16, 32, 64, 128, 256)
 
 
+def derive_shapes(dispatch_overhead_s: float, per_frame_s: float, *,
+                  min_shape: int = 8, max_shape: int = 256,
+                  max_rungs: int = 10) -> tuple[int, ...]:
+    """Static shape ladder sized from *measured* dispatch economics instead
+    of the fixed power-of-two ladder (the reference's rule, verbatim).
+
+    The ladder trades two costs.  Padding a batch of ``n`` frames up to the
+    next rung ``r*n`` wastes ``n*(r-1)`` frames of operator compute (about
+    ``n*(r-1)/2`` in expectation over uniform batch sizes).  Every extra
+    rung costs one more static shape per (op, cf) and a call whose fixed
+    overhead the profiler measures (``Profiler.dispatch_overhead``).  Let
+    ``b = overhead / per_frame`` be the *breakeven batch*: the frame count
+    whose compute equals one call's overhead.  A rung at size ``s`` earns
+    its keep only if the padding it saves (~``s*(ratio-1)/2`` frames per
+    call) outweighs that fixed cost, so the step ratio leaving rung ``s`` is
+    ``1 + 2*b/s`` -- coarse where dispatch dominates (small rungs, or
+    expensive dispatch), fine where per-frame compute does.  Clamped to
+    [1.5, 4] so the ladder never degenerates, values snapped to multiples
+    of 8 to match frame-batch alignment, and capped at ``max_rungs``
+    entries.
+
+    Deterministic in its inputs; callers thread the result through
+    ``run_query(batch_shapes=)``.
+    """
+    if per_frame_s <= 0:
+        raise ValueError(f"per_frame_s must be > 0, got {per_frame_s}")
+    if not 0 < min_shape <= max_shape:
+        raise ValueError(f"bad shape bounds [{min_shape}, {max_shape}]")
+    b = max(0.0, dispatch_overhead_s) / per_frame_s
+    shapes = [min_shape]
+    while shapes[-1] < max_shape and len(shapes) < max_rungs:
+        s = shapes[-1]
+        ratio = min(4.0, max(1.5, 1.0 + 2.0 * b / s))
+        nxt = min(max_shape, max(s + 8, int(round(s * ratio / 8.0)) * 8))
+        shapes.append(nxt)
+    if shapes[-1] != max_shape:
+        shapes[-1] = max_shape  # rung cap hit: top rung must cover max
+    return tuple(shapes)
+
+
 @dataclasses.dataclass
 class ConsumeStats:
     """Accounting for one ``consume`` call (accumulated into StageStats)."""

@@ -9,7 +9,8 @@ residuals equal the reference's bit for bit -- and serve as the oracle of
 the CUDA kernels in ``repro_torch.kernels.dct8``, which sum in the same
 order and which the codec's hot path calls through ``kernels.dct8.ops``.
 ``resize`` goes through ``kernels.resize.ops``: the hand-written K2 kernel
-on the card, its plain version on the CPU.
+on the card, its plain version on the CPU; ``apply_quality`` runs the
+standalone K3 and then K1 through ``kernels.dct8.ops`` the same way.
 """
 
 from __future__ import annotations
@@ -146,6 +147,32 @@ def resize(frames: torch.Tensor, h: int, w: int) -> torch.Tensor:
     if tuple(frames.shape[1:]) == (h, w):
         return frames
     return resize_ops.resize(frames.to(torch.float32).contiguous(), h, w)
+
+
+def apply_quality(frames_u8, quant_scale: float) -> torch.Tensor:
+    """Intra-frame quantization roundtrip -- the image-quality knob's effect
+    on pixels, used when materializing consumption-fidelity samples for
+    profiling: ``clip(round(IDCT(dequantize(quantize(DCT(blocks))))))`` to
+    uint8, the identity for ``quant_scale <= 1``.  One launch of the
+    standalone K3 and one of K1 on a CUDA tensor, their plain versions on a
+    CPU tensor (``kernels.dct8.ops``)."""
+    frames = torch.as_tensor(frames_u8)
+    if quant_scale <= 1.0:
+        return frames.to(torch.uint8)
+    # deferred: kernels.dct8 imports this module
+    from ..kernels.dct8.ops import dct_dequantize, dct_quantize
+    sym = dct_quantize(frames.to(torch.float32).contiguous(), quant_scale)
+    x = dct_dequantize(sym, quant_scale)
+    return torch.clamp(torch.round(x), 0, 255).to(torch.uint8)
+
+
+def materialize(frames_u8, cf, spec, src=None) -> torch.Tensor:
+    """Ingest-fidelity frames -> consumption-fidelity frames (sampling,
+    crop, resolution, then image-quality loss), on the frames' device."""
+    from ..core.knobs import FidelityOption
+    src = src or FidelityOption()
+    out = convert_fidelity(frames_u8, src, cf, spec)
+    return apply_quality(out, cf.quant_scale)
 
 
 def temporal_indices(f_from, f_to, spec) -> np.ndarray:

@@ -1,19 +1,27 @@
-"""Port of ``repro/core/configure.py``: the ``DerivedConfig`` data and its
-lookup tables.
+"""Port of ``repro/core/configure.py``: backward derivation of the global
+video-format configuration (paper §4).
 
-``derive_config`` (the backward derivation consumers -> CFs -> SFs ->
-erosion plan) belongs to the configuration-engine slice and is not ported
-yet; a port configuration is built by hand or rebuilt from the reference's
-wire form (``repro_torch.cluster.wire.config_from_wire``).
+    consumers --(§4.2)--> consumption formats
+              --(§4.3)--> storage formats (+ ingestion budget)
+              --(§4.4)--> data erosion plan (+ storage budget)
+
+`derive_config` runs the three steps and returns a `DerivedConfig` that the
+video store installs and query execution reads.  A configuration can also
+be rebuilt from the reference's wire form
+(``repro_torch.cluster.wire.config_from_wire``).
 """
 
 from __future__ import annotations
 
 import dataclasses
 
-from .coalesce import SFNode
-from .consumption import ConsumerPlan
+from .coalesce import CoalesceResult, SFNode, coalesce
+from .consumption import Consumer, ConsumerPlan, derive_all
+from .erosion import ErosionPlan, plan_erosion
 from .knobs import FidelityOption, StorageFormat
+
+DEFAULT_ACCURACIES = (0.95, 0.90, 0.80, 0.70)
+DEFAULT_OPS = ("diff", "snn", "nn", "motion", "license", "ocr")
 
 #: the port's codec dispatch routes, keyed by the reference's backend names:
 #: the reference's Pallas kernels become the CUDA kernels (CUDA tensors),
@@ -25,12 +33,12 @@ DCT_ROUTES = {"pallas": "cuda", "jnp": "cpu"}
 class DerivedConfig:
     plans: list[ConsumerPlan]
     nodes: list[SFNode]
-    coalesce_log: object
-    # the reference's ErosionPlan; erosion waits for a later slice
-    erosion: object | None = None
-    # codec dispatch route ("cuda" | "cpu", see DCT_ROUTES) the reference's
-    # profiler chose; informational here: the port dispatches on the
-    # device of the tensors it is given.  None means "not profiled".
+    coalesce_log: CoalesceResult | None
+    erosion: ErosionPlan | None = None
+    # codec dispatch route ("cuda" | "cpu", see DCT_ROUTES) chosen from the
+    # profiler's measured dispatch cost (derive_config) or carried over the
+    # wire; informational: the port dispatches on the device of the tensors
+    # it is given.  None means "not profiled".
     dct_backend: str | None = None
     # cascade-head ops to sketch at ingest; None disables indexing
     index_ops: tuple[str, ...] | None = None
@@ -97,3 +105,44 @@ class DerivedConfig:
             lines.append(f"  {self._sf_ids[i]:5s} {n.sf.name()}"
                          f"{'  [golden]' if n.golden else ''}")
         return "\n".join(lines)
+
+
+def derive_config(profiler,
+                  ops: tuple[str, ...] = DEFAULT_OPS,
+                  accuracies: tuple[float, ...] = DEFAULT_ACCURACIES,
+                  ingest_budget: float | None = None,
+                  storage_budget_bytes: float | None = None,
+                  lifespan_days: int = 10,
+                  daily_video_seconds: float = 86400.0) -> DerivedConfig:
+    """Run the full backward derivation."""
+    consumers = [Consumer(op, a) for op in ops for a in accuracies]
+
+    # 1. consumption formats (optimize consumption speed)
+    plans = derive_all(profiler, consumers)
+
+    # 2. storage formats (optimize storage, respect ingestion budget)
+    result = coalesce(profiler, plans, ingest_budget=ingest_budget)
+    cfg = DerivedConfig(plans=plans, nodes=result.nodes, coalesce_log=result)
+
+    # 2b. codec route: the faster of the plain route and K1 by the
+    # profiler's *measured* dct8 dispatch cost, recorded only -- the port
+    # dispatches on tensor devices, so no codec-wide switch is installed.
+    # Table-backed profilers (tests) have no wall clock and skip this.
+    if hasattr(profiler, "dct_dispatch_cost"):
+        cpu_s, cuda_s = profiler.dct_dispatch_cost()
+        cfg.dct_backend = DCT_ROUTES["pallas" if cuda_s < cpu_s else "jnp"]
+
+    # 3. erosion plan (respect storage budget)
+    if storage_budget_bytes is not None:
+        subs = {}
+        for i, node in enumerate(result.nodes):
+            for p in node.plans:
+                subs[p] = i
+        daily = []
+        for node in result.nodes:
+            _, bytes_per_sec = profiler.storage_profile(node.sf)
+            daily.append(bytes_per_sec * daily_video_seconds)
+        cfg.erosion = plan_erosion(
+            profiler, result.nodes, subs, daily, lifespan_days,
+            storage_budget_bytes)
+    return cfg

@@ -51,6 +51,15 @@ class IngestStats:
         self.chunks += chunks
         self.chunk_bytes += chunk_bytes
 
+    def bytes_per_video_second(self, spec: IngestSpec) -> float:
+        dur = max(1e-9, self.segments * spec.segment_seconds)
+        return self.stored_bytes / dur
+
+    def cost_xrealtime(self, spec: IngestSpec) -> float:
+        """Transcode compute normalized to video realtime (1.0 = keeps up)."""
+        dur = max(1e-9, self.segments * spec.segment_seconds)
+        return self.encode_seconds / dur
+
 
 def _sf_key(sf_id: str, stream: str, seg: int) -> str:
     return f"{stream}:{sf_id}:{seg:06d}"

@@ -6,7 +6,8 @@ rglru_gated_scan) against their plain PyTorch versions.
 This file imports neither ``jax`` nor ``repro``, so it also runs on a GPU
 host that has PyTorch but no JAX.  On the CPU it checks what the kernels
 receive (the wrappers refuse CPU tensors, ``ops`` routes them to the plain
-versions, K2's banded taps reproduce the dense weights, K5's and K6's
+versions, ``apply_quality`` is the standalone K3's then K1's plain
+version, K2's banded taps reproduce the dense weights, K5's and K6's
 plain scans carry their state across a split, K6's gated form is the
 mixer's stepped ops plus the plain scan and its mutants fail the hold,
 K5's kernel arithmetic --
@@ -38,6 +39,7 @@ from repro_torch.analytics import operators as O
 from repro_torch.analytics.operators import OPERATORS
 from repro_torch.analytics.scene import generate_segment
 from repro_torch.codec import segment as S
+from repro_torch.codec import transform as T
 from repro_torch.core.knobs import FidelityOption, IngestSpec
 from repro_torch.kernels.attention import attention as K4
 from repro_torch.kernels.attention import ops as attn_ops
@@ -947,6 +949,37 @@ def test_resize_tile_plan_is_the_kernels_on_card(cuda, n_in, n_out):
     taps = K2.band(n_out, n_in)[1].shape[1]
     assert K2.kernel_tile_plan(n_out, n_in, taps) == K2.tile_plan(
         n_out, n_in, taps)
+
+
+def test_apply_quality_routes_through_the_standalone_k3_and_k1_plainly():
+    """On a CPU tensor the image-quality roundtrip is K3's plain version
+    then K1's, rounded and clamped to u8; quality "best" is the identity."""
+    frames = torch.from_numpy(generate_segment("jackson", 0, IngestSpec())[0])
+    sym = dct8_quantize_ref(frames.float(), 6.0)
+    want = torch.clamp(torch.round(dct8_dequantize_ref(sym, 6.0)), 0, 255)
+    assert torch.equal(T.apply_quality(frames, 6.0), want.to(torch.uint8))
+    assert torch.equal(T.apply_quality(frames, 1.0), frames)
+    with pytest.raises(ValueError, match="no dct8 path"):
+        dct_ops.dct_quantize(frames.float().to("meta"), 6.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("spec", [IngestSpec(), IngestSpec(720, 1280, 30, 4)])
+@pytest.mark.parametrize("qs", [2.0, 6.0, 16.0])
+def test_quality_roundtrip_on_card_matches_plain(cuda, spec, qs):
+    """``dct_quantize`` then ``dct_dequantize`` on the card (the standalone
+    K3, then K1: one launch each) against the plain ``apply_quality`` on
+    the CPU: u8 within one grey level, at most 1e-3 of the pixels apart
+    (K3 may move 1e-6 of its symbols by one, K1 holds 1e-3)."""
+    frames = torch.from_numpy(generate_segment("dashcam", 1, spec)[0])
+    LAUNCHES.reset()
+    x = frames.to(cuda)
+    r = dct_ops.dct_dequantize(dct_ops.dct_quantize(x.float(), qs), qs)
+    got = torch.clamp(torch.round(r), 0, 255).to(torch.uint8)
+    assert LAUNCHES.snapshot() == {"dct8_quantize": 1, "dct8_dequantize": 1}
+    assert torch.equal(T.apply_quality(x, qs), got)
+    d = (got.cpu().int() - T.apply_quality(frames, qs).int()).abs()
+    assert int(d.max()) <= 1 and int((d > 0).sum()) <= 1e-3 * d.numel()
 
 
 @pytest.mark.cuda
